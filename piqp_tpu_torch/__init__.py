@@ -1,0 +1,54 @@
+"""piqp_tpu_torch — the PyTorch/CUDA port of piqp_tpu.
+
+A proximal interior-point QP solver for convex QPs
+
+    min 0.5 x'Px + c'x   s.t.  Ax = b,  h_l <= Gx <= h_u,  x_l <= x <= x_u
+
+written batch-first in PyTorch: every problem tensor has a leading batch
+dimension, and a single problem is a batch of one.  The condensed KKT
+matrices are factored by a hand-written CUDA kernel on an NVIDIA Hopper
+GPU (``ops/chol_inv.py``).  Entry points put data on the CUDA device
+unless the caller passes ``device="cpu"``.
+
+This slice ports the dense condensed-Cholesky backend; the JAX package
+``piqp_tpu`` is its reference, and no module here imports it or JAX.
+"""
+
+from .types import (
+    PIQP_INF,
+    BasicVars,
+    Info,
+    KKTBackend,
+    QPData,
+    Result,
+    Scaling,
+    Settings,
+    Status,
+    status_to_string,
+)
+from .api import DenseSolver, has_cone, prepare_data, solve_dense, solve_prepared
+from .batch import prepare_batch, solve_batch, warm_from_result
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "PIQP_INF",
+    "BasicVars",
+    "DenseSolver",
+    "Info",
+    "KKTBackend",
+    "QPData",
+    "Result",
+    "Scaling",
+    "Settings",
+    "Status",
+    "status_to_string",
+    "has_cone",
+    "prepare_data",
+    "prepare_batch",
+    "solve_dense",
+    "solve_prepared",
+    "solve_batch",
+    "warm_from_result",
+    "__version__",
+]

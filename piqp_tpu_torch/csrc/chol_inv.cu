@@ -1,0 +1,119 @@
+// Batched Cholesky factorization with fused triangular inverse (K1).
+//
+// Replaces the TPU kernel piqp_tpu/ops/pallas_chol.py::_chol_inv_kernel.
+// For each SPD matrix K of a (B, n, n) batch it computes the lower factor
+// L = chol(K), with its strict upper triangle zeroed, and Linv = L^-1, by
+// the TPU kernel's per-column recurrence:
+//
+//   d        = sqrt(W[j, j])                        (W: running workspace)
+//   L[i, j]  = W[i, j] / d                          for i >= j
+//   W[i, k] -= L[i, j] L[k, j]                      for j < k <= i
+//   Linv[j,] = (e_j - L[j, :j] Linv[:j, :]) / d
+//
+// A pivot d^2 <= 0 is neither clamped nor guarded: its problem's outputs
+// come out non-finite, which the KKT layer reads as a failed factorization
+// and answers by raising the regularization.
+//
+// Bound on an H100 SXM (data sheet: 3.35 TB/s HBM3, 67 TFLOP/s f32 and
+// 34 TFLOP/s f64 outside the tensor cores).  At the main path's shape,
+// B = 1024 and n = 128, the kernel must read K once and write L and Linv
+// once: 3 B n^2 elements, 201 MB in f32 (60 us) or 403 MB in f64 (120 us).
+// It does about n^3 flops per matrix (n^3/3 for the factor, 2n^3/3 for the
+// fused inverse), 2.1 GFLOP in all: 32 us in f32, 63 us in f64.  So it is
+// bound by bytes in both types.
+//
+// Design: one thread block of 256 threads per matrix, so the grid is the
+// batch and no padding is needed (the TPU's batch tiles existed for its
+// sequential grid).  The workspace lives in the L output buffer in device
+// memory: one n = 128 matrix is 64 KB in f32 and 128 KB in f64, so K and
+// Linv together do not fit in a block's 227 KB of shared memory at n = 256,
+// while the ~1000 blocks' working sets stay mostly in the 50 MB L2.  The
+// pivot column and row j of L are staged in shared memory.  Each step has
+// two phases split by __syncthreads: (1) read the pivot and stage the
+// scaled column and row j; (2) write the column, apply the rank-1 update
+// to the lower trailing block and form row j of Linv.  Shared-memory tiles
+// and tensor-core trailing updates are left for later work.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxN = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+chol_inv_kernel(const T* __restrict__ K, T* __restrict__ L_out,
+                T* __restrict__ Linv_out, int n) {
+  __shared__ T col[kMaxN];
+  __shared__ T row[kMaxN];
+
+  const size_t offset = static_cast<size_t>(blockIdx.x) * n * n;
+  const T* A = K + offset;
+  T* L = L_out + offset;
+  T* Li = Linv_out + offset;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int nn = n * n;
+
+  for (int idx = tid; idx < nn; idx += kThreads) {
+    L[idx] = A[idx];
+    Li[idx] = T(0);
+  }
+  __syncthreads();
+
+  for (int j = 0; j < n; ++j) {
+    // phase 1: pivot, scaled column j (rows >= j) and row j of L (cols < j)
+    const T dinv = T(1) / sqrt(L[j * n + j]);
+    for (int i = j + tid; i < n; i += kThreads) col[i] = L[i * n + j] * dinv;
+    for (int k = tid; k < j; k += kThreads) row[k] = L[j * n + k];
+    __syncthreads();
+
+    // phase 2a: store column j and update the lower trailing block, one
+    // warp per row so that a warp's lanes touch neighbouring addresses
+    for (int i = j + tid; i < n; i += kThreads) L[i * n + j] = col[i];
+    for (int i = j + 1 + warp; i < n; i += kWarps) {
+      const T ci = col[i];
+      T* Lrow = L + i * n;
+      for (int k = j + 1 + lane; k <= i; k += 32) Lrow[k] -= ci * col[k];
+    }
+    // phase 2b: row j of Linv by forward substitution against rows < j
+    for (int c = tid; c <= j; c += kThreads) {
+      T acc = T(0);
+      for (int k = c; k < j; ++k) acc += row[k] * Li[k * n + c];
+      Li[j * n + c] = ((c == j ? T(1) : T(0)) - acc) * dinv;
+    }
+    __syncthreads();
+  }
+
+  // the strict upper triangle of L still holds K's entries
+  for (int idx = tid; idx < nn; idx += kThreads) {
+    if (idx % n > idx / n) L[idx] = T(0);
+  }
+}
+
+template <typename T>
+int launch(const T* K, T* L, T* Linv, int B, int n, void* stream) {
+  if (B < 0 || n < 1 || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  chol_inv_kernel<T><<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      K, L, Linv, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C interface (bound with ctypes).  Inputs and outputs are contiguous
+// (B, n, n) device buffers; the launch goes on `stream` and does not
+// synchronise.  Returns the cudaError_t of the launch, 0 on success.
+extern "C" int piqp_chol_inv_f32(const float* K, float* L, float* Linv,
+                                 int B, int n, void* stream) {
+  return launch<float>(K, L, Linv, B, n, stream);
+}
+
+extern "C" int piqp_chol_inv_f64(const double* K, double* L, double* Linv,
+                                 int B, int n, void* stream) {
+  return launch<double>(K, L, Linv, B, n, stream);
+}

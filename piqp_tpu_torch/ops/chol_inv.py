@@ -1,0 +1,117 @@
+"""Batched Cholesky factorization with fused triangular inverse (K1).
+
+Counterpart of ``piqp_tpu/ops/pallas_chol.py`` for its first kernel,
+``_chol_inv_kernel``.  For a (B, n, n) batch of SPD matrices,
+``cholesky_with_inverse`` returns L = chol(K) (strict upper triangle zero)
+and Linv = L^-1; every later KKT solve is then two matrix products against
+Linv (``inv_solve``).
+
+- On a CUDA tensor with n <= 256 it launches the hand-written kernel
+  ``csrc/chol_inv.cu`` (built at first use by ``ops/_build.py``).  Above
+  n = 256 it takes the library route, as the JAX package does outside its
+  kernel (``_chol_inv_xla``).
+- On a CPU tensor it runs ``chol_inv_reference``, the kernel's plain
+  PyTorch version: the same column recurrence, batched over B.
+
+A pivot <= 0 gives non-finite output for its problem only; nothing clamps
+it, because the KKT layer turns non-finite factors into a failed
+factorization and the IPM then raises the regularization.
+
+The batch is a leading dimension, so the JAX package's single-vs-vmapped
+dispatch (``custom_vmap``) has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MAX_KERNEL_N = 256
+_DTYPES = (torch.float32, torch.float64)
+
+# Kernel launches made by ``cholesky_with_inverse`` (never by the plain
+# version or the library route), in total and per dtype.
+launches = 0
+launches_by_dtype = {"float32": 0, "float64": 0}
+
+
+def _check(K: torch.Tensor) -> None:
+    if K.dtype not in _DTYPES:
+        raise TypeError(f"cholesky_with_inverse takes float32 or float64, got {K.dtype}")
+    if K.ndim != 3 or K.shape[-1] != K.shape[-2]:
+        raise ValueError(
+            f"cholesky_with_inverse takes a (B, n, n) batch, got {tuple(K.shape)}"
+        )
+
+
+def chol_inv_reference(K: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel: the per-column recurrence of
+    ``_chol_inv_kernel``, vectorized over the batch.  Step j scales column
+    j by 1/sqrt(W[j, j]), subtracts its rank-1 product from the trailing
+    block and forms row j of Linv by forward substitution."""
+    B, n, _ = K.shape
+    W = K.clone()
+    Linv = torch.zeros_like(K)
+    for j in range(n):
+        dinv = torch.rsqrt(W[:, j, j])  # (B,)
+        col = W[:, j:, j] * dinv[:, None]
+        W[:, j:, j] = col
+        if j + 1 < n:
+            W[:, j + 1:, j + 1:] -= col[:, 1:, None] * col[:, None, 1:]
+        acc = torch.matmul(W[:, j:j + 1, :j], Linv[:, :j, :]).squeeze(-2)
+        row = -acc
+        row[:, j] += 1.0
+        Linv[:, j, :] = row * dinv[:, None]
+    return torch.tril(W), Linv
+
+
+def _chol_inv_library(K: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Above the kernel's size limit: library Cholesky and a triangular
+    solve against the identity (``_chol_inv_xla``'s counterpart).  Non-PD
+    problems get NaN factors, as the kernel gives non-finite ones."""
+    L, info = torch.linalg.cholesky_ex(K)
+    L = torch.where((info == 0)[:, None, None], L, torch.nan)
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device).expand_as(K)
+    return L, torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+def _launch(K: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    global launches
+    from ._build import library
+
+    if not K.is_contiguous():
+        raise ValueError("cholesky_with_inverse needs a contiguous (B, n, n) tensor")
+    B, n, _ = K.shape
+    L = torch.empty_like(K)
+    Linv = torch.empty_like(K)
+    lib = library()
+    fn = lib.piqp_chol_inv_f32 if K.dtype == torch.float32 else lib.piqp_chol_inv_f64
+    with torch.cuda.device(K.device):
+        stream = torch.cuda.current_stream(K.device).cuda_stream
+        rc = fn(K.data_ptr(), L.data_ptr(), Linv.data_ptr(), B, n, stream)
+    if rc != 0:
+        raise RuntimeError(f"chol_inv kernel launch failed with cudaError_t {rc}")
+    launches += 1
+    launches_by_dtype[str(K.dtype).removeprefix("torch.")] += 1
+    return L, Linv
+
+
+def cholesky_with_inverse(K: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(L, Linv) for a (B, n, n) batch of SPD matrices, float32 or float64.
+
+    CUDA tensor: the hand-written kernel (n <= 256) or the library route
+    (n > 256).  CPU tensor: the plain version.  Any other device raises."""
+    _check(K)
+    if K.device.type == "cpu":
+        return chol_inv_reference(K)
+    if K.device.type != "cuda":
+        raise ValueError(f"cholesky_with_inverse runs on cuda or cpu, not {K.device}")
+    if K.shape[-1] > MAX_KERNEL_N:
+        return _chol_inv_library(K)
+    return _launch(K)
+
+
+def inv_solve(Linv: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K^-1 v = Linv^T (Linv v) via the precomputed triangular inverse.
+    Shapes: Linv (B, n, n), v (B, n)."""
+    y = torch.matmul(Linv, v.unsqueeze(-1))
+    return torch.matmul(Linv.mT, y).squeeze(-1)
