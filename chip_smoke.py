@@ -15,6 +15,13 @@ Phases:
   2. K1 (Cholesky with inverse) against its plain version, float32 and
      float64, at n in {8, 33, 64, 128, 200, 256} (B = 5) and at the main
      path's shape B = 1024, n = 128, with times and bounds;
+  2b. K2 (Cholesky with inverse and apply) and K3 (signed Cholesky with
+     inverse) against their plain versions, float32 and float64: K2 at
+     D in {4, 8, 16, 33, 64, 128} (N = 5, R = 2D + 4) and at the
+     multistage fleet's shape N = 12,800, D = 8, R = 20; K3 at
+     Np in {64, 128, 192, 256} with mixed sign patterns and at the
+     dense_ldlt fleet's shape B = 256, Np = 256; wrong-sign poisoning;
+     times and bounds at the fleets' shapes;
   3. main path: 1024 problems dense_strongly_convex_qp(128, 64, 64,
      seed=1000+i) (the benchmarks/make_batch.py set), cold with
      mixed precision and one warm re-solve round, with K1 launch counts
@@ -22,7 +29,18 @@ Phases:
   4. float64 batch (B = 64), one DenseSolver on the card, and the first 8
      problems run again on the CPU (plain versions), in float64 and with
      mixed precision;
-  5. a profile of the warm round (kernel time by name, device busy share).
+  5. a profile of the warm round (kernel time by name, device busy share);
+  6. dense_ldlt fleet: the first 256 problems of phase 3 through the full
+     3-block KKT backend (K3), mixed cold, one warm round and a float64
+     cold solve of 64, plus a float64 dense_lu batch of 64;
+  7. multistage fleet: 256 problems random_multistage_qp(T=100, D=8, Da=4,
+     ra=4, rg=4, seed=4+i) (cyclic reduction, 7 levels of K2), mixed cold,
+     one warm round and a float64 cold solve of 64; then 8 problems at
+     T = 272 (the chunked scheme with cyclic-reduction interiors), float64;
+  8. SparseSolver: one T = 100 problem as scipy CSC through structure
+     detection (the port's C++ library), solve, update(c), warm solve;
+  9. the first 4 problems of phases 6 and 7 again on the CPU, and a profile
+     of one warm round of each new fleet.
 The line before the last lists the kernels as JSON; the last line is the
 device summary.
 """
@@ -37,14 +55,23 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks from NVIDIA's H100 data sheet (float32 and float64 rates
-# outside the tensor cores)
+# H100 SXM peaks from NVIDIA's H100 data sheet, the highest rate of each
+# type: float32 outside the tensor cores, float64 on them
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 
 MAIN_B, MAIN_N, MAIN_P, MAIN_M = 1024, 128, 64, 64
 K1_SHAPES = [(5, 8), (5, 33), (5, 64), (5, 128), (5, 200), (5, 256), (MAIN_B, MAIN_N)]
 K1_TOL = {"float32": 5e-5, "float64": 1e-11}
+# K2's Y = K^-1 RHS against its plain version, relative to max |Y_ref|
+K2_Y_RTOL = {"float32": 1e-5, "float64": 1e-13}
+# the dense_ldlt fleet: n + p + m = 256, so K3 runs at its largest shape
+LDLT_B = 256
+# the multistage fleet (benchmarks/horizon_bench.py's shape at BASELINE
+# config 4's horizon): n = 804, p = 400, m = 400
+MS_B, MS_T, MS_D, MS_DA, MS_RA, MS_RG = 256, 100, 8, 4, 4, 4
+K2_SHAPES = [(5, 4), (5, 8), (5, 16), (5, 33), (5, 64), (5, 128), (MS_B * MS_T // 2, MS_D)]
+K3_SHAPES = [(5, 64), (5, 128), (5, 192), (5, 256), (LDLT_B, 256)]
 OPT_TOL = 1e-6
 # x of a mixed-precision solve on the CPU vs the card: the float32 phase
 # takes different (equally optimal) trajectories on the two devices; on
@@ -134,6 +161,232 @@ def _check_round(problems, res, what: str) -> float:
     return worst
 
 
+def _reset_counts() -> None:
+    """Zero the launch counts of every kernel wrapper."""
+    from piqp_tpu_torch.ops import chol_inv, signed_chol_inv
+
+    chol_inv.launches = 0
+    for counts in (chol_inv.launches_by_dtype, chol_inv.apply_launches_by_dtype,
+                   signed_chol_inv.launches_by_dtype):
+        for k in counts:
+            counts[k] = 0
+
+
+def _quasidef_batch(torch, B, n, dtype, seed):
+    """(K, signs): a batch of quasi-definite matrices [[H, C'], [C, -M]]
+    (H, M positive definite, n/2 rows each) under one random symmetric
+    permutation, which keeps them factorizable without pivoting (Vanderbei
+    1995) and mixes the sign pattern."""
+    rng = np.random.default_rng(seed)
+    k = n // 2
+    Q1 = rng.uniform(-1, 1, (B, k, k))
+    Q2 = rng.uniform(-1, 1, (B, n - k, n - k))
+    K = np.zeros((B, n, n))
+    K[:, :k, :k] = Q1 @ np.swapaxes(Q1, 1, 2) + k * np.eye(k)
+    K[:, k:, k:] = -(Q2 @ np.swapaxes(Q2, 1, 2) + (n - k) * np.eye(n - k))
+    C = rng.uniform(-1, 1, (B, n - k, k))
+    K[:, k:, :k] = C
+    K[:, :k, k:] = np.swapaxes(C, 1, 2)
+    signs = np.concatenate([np.ones(k), -np.ones(n - k)])
+    perm = rng.permutation(n)
+    K, signs = np.ascontiguousarray(K[:, perm][:, :, perm]), signs[perm]
+    return (torch.as_tensor(K, dtype=dtype, device="cuda"),
+            torch.as_tensor(signs, dtype=dtype, device="cuda"))
+
+
+def _bound(name, nbytes, flops):
+    """(bound_ms, bound_by) on the card's data-sheet peaks.  A Cholesky
+    factor and a triangular inverse of an n x n matrix take about n^3/3
+    flops each."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / PEAK_FLOPS[name] * 1e3
+    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def _check_k2(torch, smi) -> list:
+    """K2 against its plain version on the card, times at the fleet's shape."""
+    from piqp_tpu_torch.ops import chol_inv
+
+    entries = []
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).removeprefix("torch.")
+        tol = K1_TOL[name]
+        worst = 0.0
+        for N, D in K2_SHAPES:
+            R = 2 * D + 4
+            K = _spd_batch(torch, N, D, dtype, seed=D)
+            RHS = torch.as_tensor(np.random.default_rng(D).uniform(-1, 1, (N, D, R)),
+                                  dtype=dtype, device="cuda")
+            L, Linv, Y = chol_inv.cholesky_inverse_apply(K, RHS)
+            torch.cuda.synchronize()
+            L_ref, Linv_ref, Y_ref = chol_inv.chol_inv_apply_reference(K, RHS)
+            eye = torch.eye(D, dtype=dtype, device="cuda")
+            err_L = (L - L_ref).abs().max().item()
+            err_I = (L @ Linv - eye).abs().max().item()
+            err_Y = (Y - Y_ref).abs().max().item()
+            print(f"[K2 {name}] N={N} D={D} R={R}: |L-L_ref| {err_L:.3e} "
+                  f"|L Linv - I| {err_I:.3e} |Y-Y_ref| {err_Y:.3e}")
+            if not (err_L <= tol * max(1.0, L_ref.abs().max().item())
+                    and err_I <= 50 * tol
+                    and err_Y <= K2_Y_RTOL[name] * Y_ref.abs().max().item()):
+                raise AssertionError(f"K2 {name} N={N} D={D} disagrees with its plain version")
+            worst = max(worst, err_L, err_Y)
+        # one indefinite block gives non-finite output for itself only
+        K = _spd_batch(torch, 4, 12, dtype, seed=1)
+        K[2, 5, 5] = -1e3
+        RHS = torch.ones((4, 12, 28), dtype=dtype, device="cuda")
+        L, Linv, Y = chol_inv.cholesky_inverse_apply(K, RHS)
+        fin = [bool(torch.isfinite(a[i]).all()) for i in range(4) for a in (L, Linv, Y)]
+        if fin != [True] * 6 + [False] * 3 + [True] * 3:
+            raise AssertionError(f"K2 {name}: indefinite input gave finite flags {fin}")
+
+        N, D = K2_SHAPES[-1]
+        R = 2 * D + 4
+        K = _spd_batch(torch, N, D, dtype, seed=7)
+        RHS = torch.as_tensor(np.random.default_rng(7).uniform(-1, 1, (N, D, R)),
+                              dtype=dtype, device="cuda")
+        ms = _time_ms(torch, lambda: chol_inv.cholesky_inverse_apply(K, RHS))
+        plain_ms = _time_ms(torch, lambda: chol_inv.chol_inv_apply_reference(K, RHS), repeats=5)
+        eye = torch.eye(D, dtype=dtype, device="cuda").expand_as(K)
+
+        def library():
+            Lc = torch.linalg.cholesky_ex(K)[0]
+            Li = torch.linalg.solve_triangular(Lc, eye, upper=False)
+            return Li.mT @ (Li @ RHS)
+
+        library_ms = _time_ms(torch, library)
+        bound_ms, bound_by = _bound(
+            name, N * (3 * D * D + 2 * D * R) * K.element_size(),
+            N * (2 * D ** 3 / 3 + 2 * D * D * R))
+        print(f"[K2 {name}] N={N} D={D} R={R}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library {library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}); {smi}")
+        entries.append(dict(
+            name=f"chol_inv_apply_{name}", route="cuda",
+            source="piqp_tpu_torch/csrc/chol_inv_apply.cu",
+            replaces="piqp_tpu/ops/pallas_chol.py:270",
+            launches=None, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        ))
+    return entries
+
+
+def _check_k3(torch, smi) -> list:
+    """K3 against its plain version on the card, times at the fleet's shape."""
+    from piqp_tpu_torch.ops import signed_chol_inv as sci
+
+    entries = []
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).removeprefix("torch.")
+        tol = K1_TOL[name]
+        worst = 0.0
+        for B, n in K3_SHAPES:
+            K, signs = _quasidef_batch(torch, B, n, dtype, seed=n)
+            L, Linv = sci.signed_cholesky_with_inverse(K, signs)
+            torch.cuda.synchronize()
+            L_ref, Linv_ref = sci.signed_chol_inv_reference(K, signs)
+            eye = torch.eye(n, dtype=dtype, device="cuda")
+            err_L = (L - L_ref).abs().max().item()
+            err_I = (L @ Linv - eye).abs().max().item()
+            err_K = ((L * signs) @ L.mT - K).abs().max().item()
+            print(f"[K3 {name}] B={B} n={n} ({int((signs > 0).sum())} positive): "
+                  f"|L-L_ref| {err_L:.3e} |L Linv - I| {err_I:.3e} |L S L' - K| {err_K:.3e}")
+            if not (err_L <= tol * max(1.0, L_ref.abs().max().item())
+                    and err_I <= 50 * tol
+                    and err_K <= 50 * tol * max(1.0, K.abs().max().item())):
+                raise AssertionError(f"K3 {name} B={B} n={n} disagrees with its plain version")
+            worst = max(worst, err_L)
+        # a pivot of the wrong sign gives non-finite output for its problem only
+        K, signs = _quasidef_batch(torch, 4, 40, dtype, seed=1)
+        j = int(torch.nonzero(signs > 0)[0])
+        K[2, j, j] = -1e3
+        L, Linv = sci.signed_cholesky_with_inverse(K, signs)
+        fin = (torch.isfinite(L).flatten(1).all(1) & torch.isfinite(Linv).flatten(1).all(1))
+        if fin.tolist() != [True, True, False, True]:
+            raise AssertionError(f"K3 {name}: wrong-sign pivot gave finite flags {fin.tolist()}")
+
+        B, n = K3_SHAPES[-1]
+        K, signs = _quasidef_batch(torch, B, n, dtype, seed=7)
+        ms = _time_ms(torch, lambda: sci.signed_cholesky_with_inverse(K, signs))
+        plain_ms = _time_ms(torch, lambda: sci.signed_chol_inv_reference(K, signs), repeats=3)
+        bound_ms, bound_by = _bound(name, 3 * B * n * n * K.element_size(), 2 * B * n ** 3 / 3)
+        print(f"[K3 {name}] B={B} n={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms * 1e3:.1f} us ({bound_by}); no library call computes "
+              f"L with K = L S L' (library_ms null); {smi}")
+        entries.append(dict(
+            name=f"signed_chol_inv_{name}", route="cuda",
+            source="piqp_tpu_torch/csrc/signed_chol_inv.cu",
+            replaces="piqp_tpu/ops/pallas_chol.py:381",
+            launches=None, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        ))
+    return entries
+
+
+def _stage_problem(ms, kw: dict, c=None) -> dict:
+    """One multistage problem as the dense user-facing dict of
+    ``_optimality`` (``to_dense`` of its stage blocks, on the host)."""
+    d = ms.to_dense(ms.from_stage_blocks(**kw, device="cpu"))
+    h = {k: getattr(d, k)[0].numpy() for k in ("P", "c", "A", "b", "G", "h_l", "h_u",
+                                                "x_l", "x_u")}
+    masks = {k: getattr(d, k)[0].numpy() for k in ("hl_mask", "hu_mask", "xl_mask", "xu_mask")}
+    return dict(
+        P=h["P"], c=h["c"] if c is None else c, A=h["A"], b=h["b"], G=h["G"],
+        h_l=np.where(masks["hl_mask"], h["h_l"], -np.inf),
+        h_u=np.where(masks["hu_mask"], h["h_u"], np.inf),
+        x_l=np.where(masks["xl_mask"], h["x_l"], -np.inf),
+        x_u=np.where(masks["xu_mask"], h["x_u"], np.inf),
+    )
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _profile_round(torch, label, fn, unprofiled_s, smi, kernel_names=()):
+    """Kernel time by name and device busy share of one round."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    # kernel events only: an aten op's row repeats the time of its kernels
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in rows)
+    launches = sum(e.count for e in rows)
+    ours = sum(e.self_device_time_total for e in rows
+               if any(k in e.key for k in kernel_names))
+    share = f", {' / '.join(kernel_names)} {100 * ours / max(busy_us, 1e-9):.1f}% of it" \
+        if kernel_names else ""
+    print(f"[profile {label}] kernel time {busy_us / 1e3:.1f} ms in {launches} launches of "
+          f"{len(rows)} kernels{share}; device busy {100 * busy_us / (unprofiled_s * 1e6):.1f}% "
+          f"of the unprofiled round ({unprofiled_s * 1e3:.1f} ms), "
+          f"{100 * busy_us / wall_us:.1f}% of the profiled one ({wall_us / 1e3:.1f} ms); {smi}")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"[profile {label}]   {e.self_device_time_total / 1e3:9.3f} ms  "
+              f"{e.count:6d} launches  {e.key[:80]}")
+
+
+def _xcheck(label, cpu, gpu, mixed: bool) -> None:
+    """CPU (plain versions) against the card on the same problems."""
+    same_status = cpu.info.status.tolist() == gpu.info.status.cpu().tolist()
+    dx = (cpu.x - gpu.x.cpu()).abs().max().item()
+    tol = XCHECK_MIXED_TOL if mixed else 1e-6
+    print(f"[cross-check {label}] on the CPU: status equal {same_status}, max "
+          f"|x_cpu - x_gpu| {dx:.3e} (limit {tol:.0e}), iterations cpu "
+          f"{cpu.info.iter.tolist()} gpu {gpu.info.iter.cpu().tolist()}")
+    if not (same_status and dx <= tol):
+        raise AssertionError(f"the {label} CPU cross-check disagrees with the card")
+
+
 def main() -> int:
     import torch
 
@@ -141,11 +394,18 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
 
+    import dataclasses
+
+    import scipy.sparse as sp
+
     from piqp_tpu_torch import (
-        DenseSolver, Settings, Status, prepare_batch, solve_batch, warm_from_result,
+        DenseSolver, KKTBackend, Settings, SparseSolver, Status, prepare_batch,
+        solve_batch, warm_from_result,
     )
-    from piqp_tpu_torch.ops import _build, chol_inv
-    from piqp_tpu_torch.types import index
+    from piqp_tpu_torch import _native
+    from piqp_tpu_torch import multistage
+    from piqp_tpu_torch.ops import _build, chol_inv, signed_chol_inv
+    from piqp_tpu_torch.types import index, to_device
     from piqp_tpu_torch.utils.random import dense_strongly_convex_qp
 
     # ---- 1. device and build
@@ -203,22 +463,22 @@ def main() -> int:
             return torch.linalg.solve_triangular(Lc, eye, upper=False)
 
         library_ms = _time_ms(torch, library)
-        elem = K.element_size()
-        bytes_ms = 3 * MAIN_B * MAIN_N * MAIN_N * elem / HBM_BYTES_PER_S * 1e3
-        flops_ms = MAIN_B * MAIN_N ** 3 / PEAK_FLOPS[name] * 1e3
-        bound_ms = max(bytes_ms, flops_ms)
+        bound_ms, bound_by = _bound(name, 3 * MAIN_B * MAIN_N * MAIN_N * K.element_size(),
+                                    2 * MAIN_B * MAIN_N ** 3 / 3)
         print(f"[K1 {name}] B={MAIN_B} n={MAIN_N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {library_ms:.4f} ms, bound {bound_ms * 1e3:.1f} us "
-              f"({'bytes' if bytes_ms >= flops_ms else 'operations'}), "
+              f"library {library_ms:.4f} ms, bound {bound_ms * 1e3:.1f} us ({bound_by}), "
               f"{timing_launches} timing launches; {smi}")
         kernels.append(dict(
             name=f"chol_inv_{name}", route="cuda",
             source="piqp_tpu_torch/csrc/chol_inv.cu",
             replaces="piqp_tpu/ops/pallas_chol.py:65",
             launches=None, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by="bytes" if bytes_ms >= flops_ms else "operations",
-            library_ms=library_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
         ))
+
+    # ---- 2b. K2 and K3 against their plain versions on the card
+    kernels += _check_k2(torch, smi)
+    kernels += _check_k3(torch, smi)
 
     # ---- 3. main path at full width: cold + one warm round, mixed precision
     problems = [
@@ -233,9 +493,7 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.2f} s")
     solve_batch(prepare_batch(problems[:2]), settings)  # warm-up: cuBLAS handles, allocator
 
-    chol_inv.launches = 0
-    for k in chol_inv.launches_by_dtype:
-        chol_inv.launches_by_dtype[k] = 0
+    _reset_counts()
     round_launches = {}
 
     def run_round(label, data, warm=None):
@@ -268,7 +526,8 @@ def main() -> int:
               f"({secs:.3f} s), iterations median {np.median(it):.1f} max {it.max()}, "
               f"K1 launches {round_launches[label]}, worst KKT violation {viol:.2e}; {smi}")
     for entry in kernels:
-        entry["launches"] = main_launches[entry["name"].removeprefix("chol_inv_")]
+        if entry["name"].startswith("chol_inv_float"):
+            entry["launches"] = main_launches[entry["name"].removeprefix("chol_inv_")]
 
     # ---- 4. pure float64, one DenseSolver on the card, CPU cross-check
     f64 = Settings()
@@ -319,27 +578,158 @@ def main() -> int:
             raise AssertionError(f"the {label} CPU cross-check disagrees with the card")
 
     # ---- 5. where the warm round's device time goes
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    _profile_round(torch, "warm", lambda: solve_batch(data_w, settings, warm=warm_pt),
+                   warm_s, smi)
 
+    # ---- 6. dense_ldlt fleet: the full 3-block KKT through K3
+    lprobs, lmoved = problems[:LDLT_B], moved[:LDLT_B]
+    s_ldlt = Settings(kkt_solver=KKTBackend.dense_ldlt, mixed_precision=True)
+    data6, data6w = prepare_batch(lprobs), prepare_batch(lmoved)
+    solve_batch(prepare_batch(lprobs[:2]), s_ldlt)  # warm-up
+    _reset_counts()
+    cold6, cold6_s = _timed(torch, lambda: solve_batch(data6, s_ldlt))
+    warm6_pt = warm_from_result(cold6)
+    warm6, warm6_s = _timed(torch, lambda: solve_batch(data6w, s_ldlt, warm=warm6_pt))
+    k3_launches = dict(signed_chol_inv.launches_by_dtype)
+    if not (k3_launches["float32"] > 0 and k3_launches["float64"] > 0):
+        raise AssertionError(f"dense_ldlt fleet: K3 launches per dtype {k3_launches}")
+    for label, res, secs, probs in (("cold", cold6, cold6_s, lprobs),
+                                    ("warm", warm6, warm6_s, lmoved)):
+        viol = _check_round(probs, res, f"dense_ldlt {label}")
+        it = res.info.iter.cpu().numpy()
+        print(f"[ldlt {label}] {LDLT_B}/{LDLT_B} SOLVED (n+p+m = 256), "
+              f"{LDLT_B / secs:.1f} solves/s ({secs:.3f} s), iterations median "
+              f"{np.median(it):.1f} max {it.max()}, worst KKT violation {viol:.2e}; {smi}")
+    print(f"[ldlt] K3 launches in the mixed cold + warm rounds {k3_launches}")
+    f64_ldlt = Settings(kkt_solver=KKTBackend.dense_ldlt)
+    before = signed_chol_inv.launches_by_dtype["float64"]
+    res6_64, secs = _timed(torch, lambda: solve_batch(prepare_batch(lprobs[:64]), f64_ldlt))
+    viol = _check_round(lprobs[:64], res6_64, "dense_ldlt float64")
+    if signed_chol_inv.launches_by_dtype["float64"] <= before:
+        raise AssertionError("dense_ldlt float64 batch did not launch K3")
+    print(f"[ldlt f64] B=64 all SOLVED in {secs:.3f} s, iterations max "
+          f"{int(res6_64.info.iter.max())}, worst KKT {viol:.2e}")
+    f64_lu = Settings(kkt_solver=KKTBackend.dense_lu)
+    res_lu, secs = _timed(torch, lambda: solve_batch(prepare_batch(lprobs[:64]), f64_lu))
+    viol = _check_round(lprobs[:64], res_lu, "dense_lu float64")
+    print(f"[lu f64] B=64 all SOLVED in {secs:.3f} s (library LU), iterations max "
+          f"{int(res_lu.info.iter.max())}, worst KKT {viol:.2e}")
+
+    # ---- 7. multistage fleet: cyclic reduction through K2
+    ms_dims = dict(T=MS_T, D=MS_D, Da=MS_DA, ra=MS_RA, rg=MS_RG)
+    seeds = [4 + i for i in range(MS_B)]
+    t0 = time.perf_counter()
+    data7 = multistage.random_multistage_batch(seeds, **ms_dims)
+    rng = np.random.default_rng(2025)
+    dc = rng.standard_normal((MS_B, data7.n)) * 1e-3
+    data7w = dataclasses.replace(data7, c=data7.c + torch.as_tensor(dc, device="cuda"))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        solve_batch(data_w, settings, warm=warm_pt)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-    # kernel events only: an aten op's row repeats the time of its kernels
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in rows)
-    launches = sum(e.count for e in rows)
-    print(f"[profile warm] kernel time {busy_us / 1e3:.1f} ms in {launches} launches of "
-          f"{len(rows)} kernels; device busy {100 * busy_us / (warm_s * 1e6):.1f}% of the "
-          f"unprofiled warm round ({warm_s * 1e3:.1f} ms), {100 * busy_us / wall_us:.1f}% "
-          f"of the profiled one ({wall_us / 1e3:.1f} ms); {smi}")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"[profile warm]   {e.self_device_time_total / 1e3:9.3f} ms  "
-              f"{e.count:6d} launches  {e.key[:80]}")
+    print(f"[ms] prepared {MS_B} problems T={MS_T} D={MS_D} Da={MS_DA} (n={data7.n} "
+          f"p={data7.p} m={data7.m}) in {time.perf_counter() - t0:.2f} s")
+    kws = [multistage.random_multistage_arrays(seed=s, **ms_dims) for s in seeds]
+
+    def stage_problems(count, shift=None):
+        for i in range(count):
+            c = None if shift is None else kws[i]["c"] + shift[i]
+            yield _stage_problem(multistage, kws[i], c)
+
+    s_ms = Settings(mixed_precision=True)
+    solve_batch(index(data7, slice(0, 2)), s_ms)  # warm-up
+    _reset_counts()
+    cold7, cold7_s = _timed(torch, lambda: solve_batch(data7, s_ms))
+    warm7_pt = warm_from_result(cold7)
+    warm7, warm7_s = _timed(torch, lambda: solve_batch(data7w, s_ms, warm=warm7_pt))
+    k2_launches = dict(chol_inv.apply_launches_by_dtype)
+    if not (k2_launches["float32"] > 0 and k2_launches["float64"] > 0):
+        raise AssertionError(f"multistage fleet: K2 launches per dtype {k2_launches}")
+    for label, res, secs, shift in (("cold", cold7, cold7_s, None),
+                                    ("warm", warm7, warm7_s, dc)):
+        viol = _check_round(stage_problems(MS_B, shift), res, f"multistage {label}")
+        it = res.info.iter.cpu().numpy()
+        print(f"[ms {label}] {MS_B}/{MS_B} SOLVED, {MS_B / secs:.1f} solves/s ({secs:.3f} s), "
+              f"iterations median {np.median(it):.1f} max {it.max()}, worst KKT "
+              f"violation {viol:.2e}; {smi}")
+    print(f"[ms] K2 launches in the mixed cold + warm rounds {k2_launches}")
+    f64 = Settings()
+    n64 = min(64, MS_B)
+    before = chol_inv.apply_launches_by_dtype["float64"]
+    res7_64, secs = _timed(torch, lambda: solve_batch(index(data7, slice(0, n64)), f64))
+    viol = _check_round(stage_problems(n64), res7_64, "multistage float64")
+    if chol_inv.apply_launches_by_dtype["float64"] <= before:
+        raise AssertionError("multistage float64 batch did not launch K2")
+    print(f"[ms f64] B={n64} all SOLVED in {secs:.3f} s, iterations max "
+          f"{int(res7_64.info.iter.max())}, worst KKT {viol:.2e}")
+    long_dims = dict(ms_dims, T=272)
+    if not (not multistage._use_cr(272) and multistage._use_cr(272 // multistage._chunk_count(272) - 1)):
+        raise AssertionError("T = 272 does not select chunks with cyclic-reduction interiors")
+    before = chol_inv.apply_launches_by_dtype["float64"]
+    res_long, secs = _timed(torch, lambda: solve_batch(
+        multistage.random_multistage_batch(seeds[:8], **long_dims), f64))
+    long_kws = [multistage.random_multistage_arrays(seed=s, **long_dims) for s in seeds[:8]]
+    viol = _check_round((_stage_problem(multistage, kw) for kw in long_kws), res_long,
+                        "multistage T=272")
+    grown = chol_inv.apply_launches_by_dtype["float64"] - before
+    if grown <= 0:
+        raise AssertionError("the T = 272 batch did not launch K2")
+    print(f"[ms T=272] B=8 all SOLVED in {secs:.3f} s (chunked, C={multistage._chunk_count(272)}, "
+          f"cyclic-reduction interiors), iterations max {int(res_long.info.iter.max())}, "
+          f"K2 float64 launches {grown}, worst KKT {viol:.2e}")
+
+    # ---- 8. SparseSolver: structure detection, solve, update(c), warm solve
+    prob0 = _stage_problem(multistage, kws[0])
+    csc = {k: sp.csc_matrix(prob0[k]) for k in ("P", "A", "G")}
+    ssolver = SparseSolver(Settings(kkt_solver=KKTBackend.multistage), device="cuda")
+    t = time.perf_counter()
+    ssolver.setup(csc["P"], prob0["c"], csc["A"], prob0["b"], csc["G"],
+                  prob0["h_l"], prob0["h_u"])
+    setup_s = time.perf_counter() - t
+    sd = ssolver._stage_data
+    if sd is None or _native._lib is None:
+        raise AssertionError("SparseSolver did not detect stages through the C++ library")
+    if ssolver.solve() != Status.SOLVED:
+        raise AssertionError("SparseSolver did not solve the T = 100 problem")
+    it_cold = int(ssolver.result.info.iter)
+    dx_cold = (ssolver.result.x.cpu() - res7_64.x[0].cpu()).abs().max().item()
+    ssolver.update(c=prob0["c"] + dc[0])
+    if ssolver._stage_data.Pd is not sd.Pd:
+        raise AssertionError("update(c=...) rebuilt the stage blocks")
+    if ssolver.solve(warm_start=True) != Status.SOLVED:
+        raise AssertionError("SparseSolver did not solve the updated problem")
+    # the same warm solve as a stage batch: warm-started from the batch's
+    # own float64 result of problem 0, the point the solver starts from
+    ref_w = solve_batch(index(data7w, slice(0, 1)), f64,
+                        warm=warm_from_result(index(res7_64, slice(0, 1))))
+    dx_warm = (ssolver.result.x.cpu() - ref_w.x[0].cpu()).abs().max().item()
+    print(f"[sparse] SparseSolver(multistage) detected T={sd.T} D={sd.D} Da={sd.Da} in "
+          f"{setup_s:.2f} s; solve {it_cold} iterations, "
+          f"|x - x_batch| {dx_cold:.2e}; update(c) + warm solve "
+          f"{int(ssolver.result.info.iter)} iterations, |x - x_batch| {dx_warm:.2e}")
+    if not (dx_cold <= 1e-6 and dx_warm <= 1e-6):
+        raise AssertionError("SparseSolver disagrees with the stage-batch result")
+
+    # ---- 9. CPU cross-checks and profiles of the new fleets
+    _xcheck("dense_ldlt float64, first 4",
+            solve_batch(prepare_batch(lprobs[:4], device="cpu"), f64_ldlt),
+            index(res6_64, slice(0, 4)), mixed=False)
+    _xcheck("dense_ldlt mixed, first 4",
+            solve_batch(prepare_batch(lprobs[:4], device="cpu"), s_ldlt),
+            index(cold6, slice(0, 4)), mixed=True)
+    data7_cpu = to_device(index(data7, slice(0, 4)), "cpu")
+    _xcheck("multistage float64, first 4", solve_batch(data7_cpu, f64),
+            index(res7_64, slice(0, 4)), mixed=False)
+    _xcheck("multistage mixed, first 4", solve_batch(data7_cpu, s_ms),
+            index(cold7, slice(0, 4)), mixed=True)
+    _profile_round(torch, "ldlt warm",
+                   lambda: solve_batch(data6w, s_ldlt, warm=warm6_pt), warm6_s, smi,
+                   ("signed_chol_inv_kernel",))
+    _profile_round(torch, "ms warm",
+                   lambda: solve_batch(data7w, s_ms, warm=warm7_pt), warm7_s, smi,
+                   ("chol_inv_apply_kernel",))
+    for entry in kernels:
+        for prefix, counts in (("chol_inv_apply_", k2_launches),
+                               ("signed_chol_inv_", k3_launches)):
+            if entry["name"].startswith(prefix):
+                entry["launches"] = counts[entry["name"].removeprefix(prefix)]
 
     print(json.dumps({"kernels": kernels}))
     print(f"[device] {smi}")

@@ -10,8 +10,14 @@ matrices are factored by a hand-written CUDA kernel on an NVIDIA Hopper
 GPU (``ops/chol_inv.py``).  Entry points put data on the CUDA device
 unless the caller passes ``device="cpu"``.
 
-This slice ports the dense condensed-Cholesky backend; the JAX package
-``piqp_tpu`` is its reference, and no module here imports it or JAX.
+The backends follow ``Settings.kkt_solver`` as in the JAX package: the
+dense condensed Cholesky (default), ``dense_lu`` and ``dense_ldlt`` on the
+full 3-block KKT matrix (the latter through a hand-written signed-Cholesky
+kernel), and ``multistage`` for block-tridiagonal + arrow problems, given
+as stacked stage blocks (``multistage.StageQPData``) or as a sparse QP
+(``SparseSolver``), whose cyclic reduction runs a hand-written
+factor-inverse-apply kernel.  The JAX package ``piqp_tpu`` is the
+reference, and no module here imports it or JAX.
 """
 
 from .types import (
@@ -28,6 +34,8 @@ from .types import (
 )
 from .api import DenseSolver, has_cone, prepare_data, solve_dense, solve_prepared
 from .batch import prepare_batch, solve_batch, warm_from_result
+from .multistage import StageQPData, random_multistage_batch, random_multistage_qp
+from .sparse import SparseSolver
 
 __version__ = "0.1.0"
 
@@ -41,6 +49,8 @@ __all__ = [
     "Result",
     "Scaling",
     "Settings",
+    "SparseSolver",
+    "StageQPData",
     "Status",
     "status_to_string",
     "has_cone",
@@ -49,6 +59,8 @@ __all__ = [
     "solve_dense",
     "solve_prepared",
     "solve_batch",
+    "random_multistage_batch",
+    "random_multistage_qp",
     "warm_from_result",
     "__version__",
 ]

@@ -8,6 +8,11 @@
 - :class:`DenseSolver`: stateful wrapper mirroring piqp::DenseSolver
   (solver.hpp:1262-1291): settings / setup / update / solve / result.
 
+``Settings.kkt_solver`` picks the backend through the data's type
+(``_route_backend``): ``dense_cholesky`` (condensed), ``dense_lu`` and
+``dense_ldlt`` (full 3-block KKT) on dense data; stage-block data
+(``multistage.StageQPData``) always runs the multistage backend.
+
 Entry points put the data on the CUDA device unless the caller passes
 ``device="cpu"``; without a GPU they raise instead of falling back.
 """
@@ -24,7 +29,9 @@ from . import ruiz, solver
 from .types import (
     PIQP_INF,
     BasicVars,
+    FullKKTQPData,
     KKTBackend,
+    LDLTKKTQPData,
     QPData,
     Result,
     Scaling,
@@ -36,26 +43,29 @@ from .types import (
     zero_vars,
 )
 
-# the ROADMAP item of each backend that a later slice ports
-_LATER_BACKENDS = {
-    KKTBackend.dense_lu: "ROADMAP Queue 1 item 7",
-    KKTBackend.dense_ldlt: "ROADMAP Queue 1 item 7",
-    KKTBackend.multistage: "ROADMAP Queue 1 item 8",
-    KKTBackend.sparse_host: "ROADMAP Queue 1 item 9",
-}
-
-
-def _route_backend(settings: Settings) -> None:
-    """Only the dense condensed-Cholesky backend is ported so far."""
-    if settings.kkt_solver != KKTBackend.dense_cholesky:
+def _route_backend(data, settings: Settings):
+    """Re-wrap dense data in the type that selects ``settings.kkt_solver``
+    (``piqp_tpu/api.py:42-72``): ``dense_lu`` -> FullKKTQPData,
+    ``dense_ldlt`` -> LDLTKKTQPData.  Other data (stage blocks) and the
+    other backends keep their type, as in the JAX package: ``multistage``
+    on dense data runs the condensed dense backend.  The host sparse
+    backend is not ported yet."""
+    if settings.kkt_solver == KKTBackend.sparse_host:
         raise NotImplementedError(
-            f"KKTBackend.{settings.kkt_solver.name} is not ported to "
-            f"piqp_tpu_torch yet ({_LATER_BACKENDS[settings.kkt_solver]})"
+            "KKTBackend.sparse_host is not ported to piqp_tpu_torch yet "
+            "(ROADMAP Queue 1 item 9)"
         )
     if settings.compute_timings:
         raise NotImplementedError(
             "Settings.compute_timings is not ported to piqp_tpu_torch yet"
         )
+    if type(data) is QPData:
+        cls = {KKTBackend.dense_lu: FullKKTQPData,
+               KKTBackend.dense_ldlt: LDLTKKTQPData}.get(settings.kkt_solver)
+        if cls is not None:
+            return cls(**{f.name: getattr(data, f.name)
+                          for f in dataclasses.fields(QPData)})
+    return data
 
 
 def _as_2d(M, rows, cols, dtype):
@@ -199,7 +209,7 @@ def solve_prepared(
     """Solve prepared (batched) data; the result is batched like the data.
     ``warm``: a previous batched ``Result`` (or ``BasicVars``) of nearby
     problems to warm-start from."""
-    _route_backend(settings)
+    data = _route_backend(data, settings)
     cone = has_cone(data)
     warm = _warm_vars(warm)
     if scaling is not None:
@@ -391,7 +401,7 @@ class DenseSolver:
             self._result = _invalid_result(self._settings, self._device)
             self._batched_result = None
             return Status.INVALID_SETTINGS
-        _route_backend(self._settings)
+        data = _route_backend(self._data, self._settings)
         if self._settings.verbose:
             self._print_header()
 
@@ -400,11 +410,11 @@ class DenseSolver:
             warm = _warm_vars(self._batched_result)
 
         if self._scaling is None or not self._settings.preconditioner_reuse_on_update:
-            result, sc = _solve_fresh(self._data, self._settings, self._cone, warm)
+            result, sc = _solve_fresh(data, self._settings, self._cone, warm)
             self._scaling = sc
         else:
             result = _solve_reuse(
-                self._data, self._scaling, self._settings, self._cone, warm
+                data, self._scaling, self._settings, self._cone, warm
             )
         self._batched_result = result
         self._result = index(result, 0)

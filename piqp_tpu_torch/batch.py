@@ -45,19 +45,21 @@ def warm_from_result(res: Result) -> BasicVars:
 
 
 def solve_batch(
-    data: QPData,
+    data,
     settings: Settings = Settings(),
     cone: bool = True,
     chunk: int = 0,
     warm: Optional[object] = None,
 ) -> Result:
-    """Solve a batch of QPs (leading dimension on every field of ``data``).
+    """Solve a batch of QPs (leading dimension on every field of ``data``,
+    a ``QPData`` or a stacked ``multistage.StageQPData``).  The backend
+    follows ``settings.kkt_solver`` as in ``api._route_backend``.
 
     ``chunk``: when nonzero and smaller than the batch, solve sub-batches
     of ``chunk`` problems one after the other, which bounds the working
     set.  ``warm``: a previous batched ``Result`` or ``BasicVars`` to
     warm-start from."""
-    _route_backend(settings)
+    data = _route_backend(data, settings)
     warm = _warm_vars(warm)
     B = data.B
     if chunk and B > chunk:

@@ -9,8 +9,9 @@ weights play for a model.
 
 ``batched=False`` (the default) reads one problem's state and adds the
 leading batch dimension of size 1; ``batched=True`` reads state that
-already carries it (the output of ``vmap``).  Nothing here imports the JAX
-package: a source is read by attribute name.
+already carries it (the output of ``vmap``, or a stacked ``StageQPData``).
+Nothing here imports the JAX package: a source is read by attribute name,
+and its class by its name.
 """
 
 from __future__ import annotations
@@ -21,16 +22,25 @@ import numpy as np
 import torch
 
 from .kkt import KKTState
+from .multistage import StageQPData
 from .types import (
     BasicVars,
+    FullKKTQPData,
     Info,
     KKTBackend,
+    LDLTKKTQPData,
     QPData,
     Result,
     Scaling,
     Settings,
     Vars,
 )
+
+# the port's class for each JAX data class, by name
+_DATA_CLASSES = {
+    cls.__name__: cls
+    for cls in (QPData, FullKKTQPData, LDLTKKTQPData, StageQPData)
+}
 
 
 def _tensor(value, device, batched: bool) -> torch.Tensor:
@@ -48,8 +58,10 @@ def _convert(cls, src, device, batched: bool, **override):
     return cls(**fields)
 
 
-def qpdata(src, device="cpu", batched: bool = False) -> QPData:
-    return _convert(QPData, src, device, batched)
+def qpdata(src, device="cpu", batched: bool = False):
+    """A JAX ``QPData``, ``FullKKTQPData``, ``LDLTKKTQPData`` or
+    ``StageQPData`` as the port's class of the same name."""
+    return _convert(_DATA_CLASSES[type(src).__name__], src, device, batched)
 
 
 def scaling(src, device="cpu", batched: bool = False) -> Scaling:
@@ -74,16 +86,32 @@ def result(src, device="cpu", batched: bool = False) -> Result:
     )
 
 
-def kkt_state(src, device="cpu", batched: bool = False) -> KKTState:
-    """A JAX ``KKTState``.  Its factor ``L`` is either one array (the
-    Cholesky representation) or an (L, Linv) pair (the inverse
-    representation); an all-zero placeholder factor becomes None."""
+def _factor_tree(value, device, batched: bool):
+    """A nested tuple of arrays as the same nested tuple of tensors.  The
+    one integer leaf any backend keeps, dense_lu's pivots, is 0-based in
+    JAX and 1-based (LAPACK's) in ``torch.linalg.lu_solve``."""
+    if isinstance(value, tuple):
+        return tuple(_factor_tree(v, device, batched) for v in value)
+    t = _tensor(value, device, batched)
+    return t + 1 if not t.is_floating_point() else t
+
+
+def kkt_state(src, device="cpu", batched: bool = False, condensed: bool = True) -> KKTState:
+    """A JAX ``KKTState``.  ``condensed=True`` (the dense condensed
+    backend): its factor ``L`` is either one array (the Cholesky
+    representation) or an (L, Linv) pair (the inverse representation),
+    and an all-zero placeholder factor becomes None.  ``condensed=False``
+    (dense_lu, dense_ldlt, multistage): ``L`` is a tuple or nested tuple
+    and becomes ``KKTState.factor`` with the same structure."""
+    if not condensed:
+        return _convert(KKTState, src, device, batched, L=None, Linv=None,
+                        factor=_factor_tree(src.L, device, batched))
     factor = src.L if isinstance(src.L, tuple) else (src.L, None)
     L, Linv = (
         None if a is None or not np.any(np.asarray(a)) else _tensor(a, device, batched)
         for a in factor
     )
-    return _convert(KKTState, src, device, batched, L=L, Linv=Linv)
+    return _convert(KKTState, src, device, batched, L=L, Linv=Linv, factor=None)
 
 
 def settings(src: dict) -> Settings:

@@ -14,17 +14,19 @@
 // come out non-finite, which the KKT layer reads as a failed factorization
 // and answers by raising the regularization.
 //
-// Bound on an H100 SXM (data sheet: 3.35 TB/s HBM3, 67 TFLOP/s f32 and
-// 34 TFLOP/s f64 outside the tensor cores).  At the main path's shape,
-// B = 1024 and n = 128, the kernel must read K once and write L and Linv
-// once: 3 B n^2 elements, 201 MB in f32 (60 us) or 403 MB in f64 (120 us).
-// It does about n^3 flops per matrix (n^3/3 for the factor, 2n^3/3 for the
-// fused inverse), 2.1 GFLOP in all: 32 us in f32, 63 us in f64.  So it is
-// bound by bytes in both types.
+// Bound on an H100 SXM (data sheet: 3.35 TB/s HBM3; 67 TFLOP/s in f32
+// outside the tensor cores and 67 TFLOP/s in f64 on them, the highest rate
+// of each type).  At the main path's shape, B = 1024 and n = 128, the
+// kernel must read K once and write L and Linv once: 3 B n^2 elements,
+// 201 MB in f32 (60 us) or 403 MB in f64 (120 us).  It does about 2n^3/3
+// flops per matrix (n^3/3 for the factor, n^3/3 for the triangular
+// inverse), 1.4 GFLOP in all: 21 us in either type.  So it is bound by
+// bytes in both types.
 //
 // Design: one thread block of 256 threads per matrix, so the grid is the
 // batch and no padding is needed (the TPU's batch tiles existed for its
-// sequential grid).  The workspace lives in the L output buffer in device
+// sequential grid).  The recurrence itself is chol_recurrence.cuh, shared
+// with K2 and K3.  The workspace lives in the L output buffer in device
 // memory: one n = 128 matrix is 64 KB in f32 and 128 KB in f64, so K and
 // Linv together do not fit in a block's 227 KB of shared memory at n = 256,
 // while the ~1000 blocks' working sets stay mostly in the 50 MB L2.  The
@@ -36,10 +38,11 @@
 
 #include <cuda_runtime.h>
 
+#include "chol_recurrence.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxN = 256;
 
 template <typename T>
@@ -54,8 +57,6 @@ chol_inv_kernel(const T* __restrict__ K, T* __restrict__ L_out,
   T* L = L_out + offset;
   T* Li = Linv_out + offset;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
   const int nn = n * n;
 
   for (int idx = tid; idx < nn; idx += kThreads) {
@@ -64,29 +65,7 @@ chol_inv_kernel(const T* __restrict__ K, T* __restrict__ L_out,
   }
   __syncthreads();
 
-  for (int j = 0; j < n; ++j) {
-    // phase 1: pivot, scaled column j (rows >= j) and row j of L (cols < j)
-    const T dinv = T(1) / sqrt(L[j * n + j]);
-    for (int i = j + tid; i < n; i += kThreads) col[i] = L[i * n + j] * dinv;
-    for (int k = tid; k < j; k += kThreads) row[k] = L[j * n + k];
-    __syncthreads();
-
-    // phase 2a: store column j and update the lower trailing block, one
-    // warp per row so that a warp's lanes touch neighbouring addresses
-    for (int i = j + tid; i < n; i += kThreads) L[i * n + j] = col[i];
-    for (int i = j + 1 + warp; i < n; i += kWarps) {
-      const T ci = col[i];
-      T* Lrow = L + i * n;
-      for (int k = j + 1 + lane; k <= i; k += 32) Lrow[k] -= ci * col[k];
-    }
-    // phase 2b: row j of Linv by forward substitution against rows < j
-    for (int c = tid; c <= j; c += kThreads) {
-      T acc = T(0);
-      for (int k = c; k < j; ++k) acc += row[k] * Li[k * n + c];
-      Li[j * n + c] = ((c == j ? T(1) : T(0)) - acc) * dinv;
-    }
-    __syncthreads();
-  }
+  piqp::chol_inv_recurrence<T, kThreads>(L, Li, nullptr, n, col, row);
 
   // the strict upper triangle of L still holds K's entries
   for (int idx = tid; idx < nn; idx += kThreads) {

@@ -1,0 +1,68 @@
+// The column recurrence shared by K1 (chol_inv.cu), K2 (chol_inv_apply.cu)
+// and K3 (signed_chol_inv.cu): factor K = L S L^T in place and build Linv = L^-1
+// row by row, for one matrix per thread block.
+//
+//   s_j      = signs[j]                 (S = I when signs is null)
+//   d        = sqrt(s_j W[j, j])        (W: running workspace)
+//   L[i, j]  = s_j W[i, j] / d          for i >= j
+//   W[i, k] -= L[i, j] W[k, j] / d      for j < k <= i
+//   Linv[j,] = (e_j - L[j, :j] Linv[:j, :]) / d
+//
+// This is the TPU kernels' recurrence (pallas_chol.py:65 and :381), with
+// the sign woven into the column scaling and the downdate for K3; K1 and
+// K2 pass no signs.  A pivot of the wrong sign gives
+// sqrt of a negative number: the problem's outputs come out non-finite,
+// and nothing clamps it.
+//
+// W and Li may live in shared or device memory (generic addressing); col
+// and row are n-entry shared scratch.  On entry W holds K and Li is zero;
+// on exit the lower triangle of W holds L (its strict upper triangle
+// still holds K's entries) and Li holds L^-1.  W, Li, col and row do not
+// overlap.  Every thread of the block calls this; the block has kBlock
+// threads, or blockDim.x when kBlock is 0, a multiple of 32.  K1 and K3
+// pass their fixed block size so that the loop strides are constants.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace piqp {
+
+template <typename T, int kBlock = 0>
+__device__ __forceinline__ void chol_inv_recurrence(
+    T* __restrict__ W, T* __restrict__ Li, const T* __restrict__ signs, int n,
+    T* __restrict__ col, T* __restrict__ row) {
+  const int tid = threadIdx.x;
+  const int nthreads = kBlock ? kBlock : static_cast<int>(blockDim.x);
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int nwarps = nthreads >> 5;
+
+  for (int j = 0; j < n; ++j) {
+    // phase 1: pivot, unsigned scaled column j (rows >= j), row j of L
+    const T sj = signs ? signs[j] : T(1);
+    const T dinv = T(1) / sqrt(sj * W[j * n + j]);
+    for (int i = j + tid; i < n; i += nthreads) col[i] = W[i * n + j] * dinv;
+    for (int k = tid; k < j; k += nthreads) row[k] = W[j * n + k];
+    __syncthreads();
+
+    // phase 2a: column j of L and the downdate of the lower trailing
+    // block, one warp per row so that a warp's lanes touch neighbouring
+    // addresses
+    for (int i = j + tid; i < n; i += nthreads) W[i * n + j] = col[i] * sj;
+    for (int i = j + 1 + warp; i < n; i += nwarps) {
+      const T li = col[i] * sj;
+      T* Wrow = W + i * n;
+      for (int k = j + 1 + lane; k <= i; k += 32) Wrow[k] -= li * col[k];
+    }
+    // phase 2b: row j of Linv by forward substitution against rows < j
+    for (int c = tid; c <= j; c += nthreads) {
+      T acc = T(0);
+      for (int k = c; k < j; ++k) acc += row[k] * Li[k * n + c];
+      Li[j * n + c] = ((c == j ? T(1) : T(0)) - acc) * dinv;
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace piqp

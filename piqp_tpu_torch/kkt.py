@@ -12,18 +12,28 @@ kernel on CUDA), after which every solve is two matrix products against
 Linv; or L alone from the library Cholesky, solved by two triangular
 solves.  Every reduction is per problem, and the adaptive refinement loop
 stops each problem on its own.
+
+As in the JAX package, the data's type selects the backend: ``precompute``,
+``factor``, ``condensed_solve_x`` and ``_backend_solve`` dispatch on it
+(``functools.singledispatch``).  ``QPData`` is the condensed dense
+backend; ``FullKKTQPData`` and ``LDLTKKTQPData`` (``dense_lu`` and
+``dense_ldlt``, kkt.py:355-488 of the JAX package) factor the full
+3-block KKT matrix instead; ``multistage.py`` registers ``StageQPData``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import singledispatch
 from typing import Optional
 
 import torch
 
+from .ops import ldlt
 from .ops import matvec as ops
 from .ops.chol_inv import cholesky_with_inverse, inv_solve
-from .types import QPData, Settings, Vars, max0, select
+from .ops.signed_chol_inv import signed_cholesky_with_inverse, signed_inv_solve
+from .types import FullKKTQPData, LDLTKKTQPData, QPData, Settings, Vars, max0, select
 
 
 @dataclasses.dataclass
@@ -56,6 +66,9 @@ class KKTState:
     use_ir: torch.Tensor  # (B,) bool: static regularization active
     L: Optional[torch.Tensor] = None  # (B, n, n) lower factor of K
     Linv: Optional[torch.Tensor] = None  # (B, n, n) L^-1, inverse form only
+    # the factor of the other backends, a tuple (dense_lu, dense_ldlt) or a
+    # nested tuple (multistage) of batched tensors, as the JAX package's L
+    factor: Optional[tuple] = None
 
 
 def _safe_inv(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -113,11 +126,18 @@ def compute_scalings(
     )
 
 
-def precompute(data: QPData, mixed: bool = False) -> dict:
+@singledispatch
+def precompute(data, mixed: bool = False):
     """Loop-invariant terms reused by every factorization (the reference
-    caches A'A at setup, dense/kkt.hpp:51-55).  ``mixed=True`` also keeps
-    float32 copies of the matrices (``data32``, ``AtA32``) for the float32
+    caches A'A at setup, dense/kkt.hpp:51-55), or None when the backend
+    has nothing to cache.  ``mixed=True`` also keeps float32 copies of the
+    matrices (``data32``, and ``AtA32`` for dense data) for the float32
     phase of mixed precision."""
+    return None
+
+
+@precompute.register
+def _(data: QPData, mixed: bool = False) -> dict:
     pre = {}
     if data.p > 0:
         pre["AtA"] = torch.matmul(data.A.mT, data.A)
@@ -152,7 +172,20 @@ def _all_finite(M: torch.Tensor) -> torch.Tensor:
     return torch.isfinite(M).flatten(1).all(dim=1)
 
 
+@singledispatch
 def factor(
+    data, ks: KKTState, mixed: bool = False, pre=None, inverse: bool = True,
+) -> tuple[KKTState, torch.Tensor]:
+    """Factor the KKT system of every problem; the backend is chosen by the
+    data's type.  ``ok`` (B,) is False where the factor came out
+    non-finite.  ``mixed=True`` factors in float32; ``inverse=True``
+    (``Settings.factor_inverse``) keeps explicit inverses from the
+    hand-written kernels."""
+    raise NotImplementedError(type(data))
+
+
+@factor.register
+def _factor_dense(
     data: QPData, ks: KKTState, mixed: bool = False, pre: dict | None = None,
     inverse: bool = True,
 ) -> tuple[KKTState, torch.Tensor]:
@@ -197,9 +230,15 @@ def factor(
     return dataclasses.replace(ks, L=L, Linv=None), _all_finite(L)
 
 
-def condensed_solve_x(ks: KKTState, v: torch.Tensor) -> torch.Tensor:
+@singledispatch
+def condensed_solve_x(data, ks: KKTState, v: torch.Tensor) -> torch.Tensor:
     """Solve K lx = v with the factored condensed matrix, in the factor's
     precision, and cast back to v's dtype."""
+    raise NotImplementedError(type(data))
+
+
+@condensed_solve_x.register
+def _(data: QPData, ks: KKTState, v: torch.Tensor) -> torch.Tensor:
     if ks.Linv is not None:
         return inv_solve(ks.Linv, v.to(ks.Linv.dtype)).to(v.dtype)
     vf = v.to(ks.L.dtype).unsqueeze(-1)
@@ -208,10 +247,12 @@ def condensed_solve_x(ks: KKTState, v: torch.Tensor) -> torch.Tensor:
     return lx.squeeze(-1).to(v.dtype)
 
 
-def _backend_solve(data: QPData, ks: KKTState, rx, ry, rz, mat32=None):
-    """Condensed backend solve (dense/kkt.hpp:86-105).  ``mat32``: float32
-    copy of the data (precompute's data32); the condensation and recovery
-    matvecs then read float32 matrices with float32 operands."""
+@singledispatch
+def _backend_solve(data, ks: KKTState, rx, ry, rz, mat32=None):
+    """Condensed backend solve (dense/kkt.hpp:86-105), given the dispatched
+    matvecs and K-solve.  ``mat32``: float32 copy of the data (precompute's
+    data32); the condensation and recovery matvecs then read float32
+    matrices with float32 operands."""
     if mat32 is not None:
         f32 = torch.float32
         v = ops.add_AtGt(
@@ -219,15 +260,115 @@ def _backend_solve(data: QPData, ks: KKTState, rx, ry, rz, mat32=None):
             (ry / ks.delta_reg[:, None]).to(f32),
             (rz / ks.z_reg_fact).to(f32),
         )
-        lx = condensed_solve_x(ks, v)
+        lx = condensed_solve_x(data, ks, v)
         Ax, Gx = ops.AG_x(mat32, lx.to(f32))
     else:
         v = ops.add_AtGt(data, rx, ry / ks.delta_reg[:, None], rz / ks.z_reg_fact)
-        lx = condensed_solve_x(ks, v)
+        lx = condensed_solve_x(data, ks, v)
         Ax, Gx = ops.AG_x(data, lx)
     ly = (Ax - ry) / ks.delta_reg[:, None] if data.p > 0 else torch.zeros_like(ry)
     lz = (Gx - rz) / ks.z_reg_fact if data.m > 0 else torch.zeros_like(rz)
     return lx, ly, lz
+
+
+# ---------------------------------------------------------------------------
+# full 3-block dense KKT backends (KKTBackend.dense_lu / dense_ldlt)
+# ---------------------------------------------------------------------------
+
+def assemble_full_kkt(data: QPData, ks: KKTState, dt) -> torch.Tensor:
+    """The full regularized 3-block (n+p+m) KKT matrix of every problem
+
+        [ P + diag(x_reg)   A'                G'               ]
+        [ A                 -delta_reg I                       ]
+        [ G                                   -diag(z_reg_fac) ]
+
+    in dtype ``dt`` (the dense analog of the reference's KKT_FULL mode,
+    sparse/kkt_full.hpp:22-252)."""
+    n, p, m = data.n, data.p, data.m
+    K = data.P.new_zeros((data.B, n + p + m, n + p + m), dtype=dt)
+    K[:, :n, :n] = data.P.to(dt) + torch.diag_embed(ks.x_reg.to(dt))
+    A, G = data.A.to(dt), data.G.to(dt)
+    K[:, n:n + p, :n] = A
+    K[:, :n, n:n + p] = A.mT
+    K[:, n + p:, :n] = G
+    K[:, :n, n + p:] = G.mT
+    eye_p = torch.eye(p, dtype=dt, device=K.device)
+    K[:, n:n + p, n:n + p] = -ks.delta_reg.to(dt)[:, None, None] * eye_p
+    K[:, n + p:, n + p:] = -torch.diag_embed(ks.z_reg_fact.to(dt))
+    return K
+
+
+@precompute.register
+def _(data: FullKKTQPData, mixed: bool = False):
+    return None
+
+
+@factor.register
+def _factor_full_lu(
+    data: FullKKTQPData, ks: KKTState, mixed: bool = False, pre=None,
+    inverse: bool = True,
+):
+    """Pivoted LU of the full KKT matrix (library LU, which the JAX package
+    also leaves to XLA): the full form keeps the condition number at
+    kappa(KKT) instead of the condensed form's kappa^2.  ``inverse`` has no
+    effect here."""
+    K = assemble_full_kkt(data, ks, torch.float32 if mixed else data.P.dtype)
+    LU, piv, _ = torch.linalg.lu_factor_ex(K)
+    return dataclasses.replace(ks, factor=(LU, piv)), _all_finite(LU)
+
+
+@_backend_solve.register
+def _(data: FullKKTQPData, ks: KKTState, rx, ry, rz, mat32=None):
+    LU, piv = ks.factor
+    rhs = torch.cat([rx, ry, rz], dim=-1).to(LU.dtype)
+    sol = torch.linalg.lu_solve(LU, piv, rhs.unsqueeze(-1)).squeeze(-1).to(rx.dtype)
+    n, p = data.n, data.p
+    return sol[:, :n], sol[:, n:n + p], sol[:, n + p:]
+
+
+@precompute.register
+def _(data: LDLTKKTQPData, mixed: bool = False):
+    return None
+
+
+@factor.register
+def _factor_full_ldlt(
+    data: LDLTKKTQPData, ks: KKTState, mixed: bool = False, pre=None,
+    inverse: bool = True,
+):
+    """Signed Cholesky (LDL^T without pivoting) of the full quasi-definite
+    KKT matrix, embedded with identity padding in ``ldlt.padded_dim`` rows
+    (the reference's dense::LDLTNoPivot, dense/ldlt_no_pivot.hpp:279-354).
+    ``inverse=True``: (L, Linv) from ``signed_cholesky_with_inverse`` (the
+    K3 kernel on CUDA); False: (L, block inverses) from the blocked
+    ``ldlt.signed_cholesky``."""
+    dt = torch.float32 if mixed else data.P.dtype
+    K = assemble_full_kkt(data, ks, dt)
+    Np = ldlt.padded_dim(data.n + data.p + data.m)
+    Kp = ldlt.pad_quasidef(K, Np)
+    signs = ldlt.kkt_signs(data.n, data.p, data.m, Np, dt, K.device)
+    if inverse:
+        L, Linvs = signed_cholesky_with_inverse(Kp, signs)
+    else:
+        L, Linvs = ldlt.signed_cholesky(Kp, signs)
+    ok = _all_finite(L) & _all_finite(Linvs)
+    return dataclasses.replace(ks, factor=(L, Linvs)), ok
+
+
+@_backend_solve.register
+def _(data: LDLTKKTQPData, ks: KKTState, rx, ry, rz, mat32=None):
+    L, Linvs = ks.factor
+    n, p, m = data.n, data.p, data.m
+    Np = L.shape[-1]
+    signs = ldlt.kkt_signs(n, p, m, Np, L.dtype, L.device)
+    rhs = torch.cat([rx, ry, rz], dim=-1).to(L.dtype)
+    rhs = torch.cat([rhs, rhs.new_zeros((rhs.shape[0], Np - n - p - m))], dim=-1)
+    if Linvs.ndim == 3:
+        sol = signed_inv_solve(Linvs, signs, rhs)
+    else:
+        sol = ldlt.signed_solve(L, Linvs, signs, rhs)
+    sol = sol.to(rx.dtype)
+    return sol[:, :n], sol[:, n:n + p], sol[:, n + p:n + p + m]
 
 
 def mul_condensed(data: QPData, ks: KKTState, lx, ly, lz, mat32=None):

@@ -3,9 +3,11 @@
 Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process for
 ``sm_90a`` (all started together), and the objects are linked into
 ``build/piqp_tpu_torch/libpiqp_kernels.so`` beside the package.  The library
-is rebuilt when the sources or the flags change (a SHA-256 of both is kept
-next to it), so a fresh checkout builds everything on its first kernel
-launch.  The kernels have plain C interfaces and are bound with ctypes.
+is rebuilt when the sources, the headers they include (``csrc/*.cuh``) or
+the flags change (a SHA-256 of all three is kept next to it), so a fresh
+checkout builds everything on its first kernel launch.  The kernels have
+plain C interfaces and are bound with ctypes.  The host library of
+``_native.py`` (``csrc/*.cpp``) is built apart from these, with ``g++``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
+HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 BUILD_DIR = _PKG.parent / "build" / "piqp_tpu_torch"
 LIB_PATH = BUILD_DIR / "libpiqp_kernels.so"
 HASH_PATH = BUILD_DIR / "libpiqp_kernels.sha256"
@@ -33,6 +36,10 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {
     "piqp_chol_inv_f32": (_PTR, _PTR, _PTR, _INT, _INT, _PTR),
     "piqp_chol_inv_f64": (_PTR, _PTR, _PTR, _INT, _INT, _PTR),
+    "piqp_chol_inv_apply_f32": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
+    "piqp_chol_inv_apply_f64": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
+    "piqp_signed_chol_inv_f32": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR),
+    "piqp_signed_chol_inv_f64": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR),
 }
 
 
@@ -60,7 +67,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()

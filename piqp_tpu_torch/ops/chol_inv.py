@@ -19,6 +19,12 @@ factorization and the IPM then raises the regularization.
 
 The batch is a leading dimension, so the JAX package's single-vs-vmapped
 dispatch (``custom_vmap``) has no counterpart here.
+
+K2, ``cholesky_inverse_apply`` (``_chol_inv_apply_kernel``'s counterpart),
+adds the two substitution products Y = Linv^T (Linv RHS) = K^-1 RHS to the
+same pass: the hand-written kernel ``csrc/chol_inv_apply.cu`` on a CUDA
+tensor, ``chol_inv_apply_reference`` on a CPU tensor.  The multistage
+backend's cyclic reduction calls it once per level for all odd blocks.
 """
 
 from __future__ import annotations
@@ -29,9 +35,11 @@ MAX_KERNEL_N = 256
 _DTYPES = (torch.float32, torch.float64)
 
 # Kernel launches made by ``cholesky_with_inverse`` (never by the plain
-# version or the library route), in total and per dtype.
+# version or the library route), in total and per dtype;
+# ``apply_launches_by_dtype`` the same per dtype for ``cholesky_inverse_apply``.
 launches = 0
 launches_by_dtype = {"float32": 0, "float64": 0}
+apply_launches_by_dtype = {"float32": 0, "float64": 0}
 
 
 def _check(K: torch.Tensor) -> None:
@@ -115,3 +123,60 @@ def inv_solve(Linv: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     Shapes: Linv (B, n, n), v (B, n)."""
     y = torch.matmul(Linv, v.unsqueeze(-1))
     return torch.matmul(Linv.mT, y).squeeze(-1)
+
+
+# ---------------------------------------------------------------------------
+# K2: factor + inverse + apply
+# ---------------------------------------------------------------------------
+
+def chol_inv_apply_reference(K: torch.Tensor, RHS: torch.Tensor):
+    """Plain PyTorch version of K2: ``chol_inv_reference``'s (L, Linv),
+    then Z = Linv RHS and Y = Linv^T Z."""
+    L, Linv = chol_inv_reference(K)
+    return L, Linv, torch.matmul(Linv.mT, torch.matmul(Linv, RHS))
+
+
+def _launch_apply(K: torch.Tensor, RHS: torch.Tensor):
+    from ._build import library
+
+    if not (K.is_contiguous() and RHS.is_contiguous()):
+        raise ValueError("cholesky_inverse_apply needs contiguous tensors")
+    N, n, _ = K.shape
+    r = RHS.shape[-1]
+    L = torch.empty_like(K)
+    Linv = torch.empty_like(K)
+    Y = torch.empty_like(RHS)
+    lib = library()
+    fn = (lib.piqp_chol_inv_apply_f32 if K.dtype == torch.float32
+          else lib.piqp_chol_inv_apply_f64)
+    with torch.cuda.device(K.device):
+        stream = torch.cuda.current_stream(K.device).cuda_stream
+        rc = fn(K.data_ptr(), RHS.data_ptr(), L.data_ptr(), Linv.data_ptr(),
+                Y.data_ptr(), N, n, r, stream)
+    if rc != 0:
+        raise RuntimeError(f"chol_inv_apply kernel launch failed with cudaError_t {rc}")
+    apply_launches_by_dtype[str(K.dtype).removeprefix("torch.")] += 1
+    return L, Linv, Y
+
+
+def cholesky_inverse_apply(K: torch.Tensor, RHS: torch.Tensor):
+    """(L, Linv, Y = K^-1 RHS) for an (N, n, n) batch of SPD blocks and an
+    (N, n, r) batch of right-hand blocks, float32 or float64.
+
+    CUDA tensor: the hand-written kernel (n <= 256) or, above that, the
+    library route with the two products.  CPU tensor: the plain version.
+    Any other device raises."""
+    _check(K)
+    if RHS.dtype != K.dtype or RHS.ndim != 3 or RHS.shape[:2] != K.shape[:2]:
+        raise ValueError(
+            f"cholesky_inverse_apply takes RHS (N, n, r) of K's dtype, got "
+            f"{tuple(RHS.shape)} {RHS.dtype} for K {tuple(K.shape)}"
+        )
+    if K.device.type == "cpu":
+        return chol_inv_apply_reference(K, RHS)
+    if K.device.type != "cuda" or RHS.device != K.device:
+        raise ValueError(f"cholesky_inverse_apply runs on cuda or cpu, not {K.device}")
+    if K.shape[-1] > MAX_KERNEL_N:
+        L, Linv = _chol_inv_library(K)
+        return L, Linv, torch.matmul(Linv.mT, torch.matmul(Linv, RHS))
+    return _launch_apply(K, RHS)

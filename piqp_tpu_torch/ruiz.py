@@ -11,6 +11,7 @@ as ``vmap`` of the JAX ``while_loop`` does.
 from __future__ import annotations
 
 import dataclasses
+from functools import singledispatch
 
 import torch
 
@@ -37,14 +38,23 @@ def _inf_norm_rows(M: torch.Tensor) -> torch.Tensor:
     return max0(M.abs(), dim=-1)
 
 
+@singledispatch
 def equilibrate(
+    data, max_iter: int = 10, scale_cost: bool = False, epsilon: float = 1e-3,
+):
+    """Compute and apply Ruiz scaling (preconditioner.hpp:64-222); returns
+    (scaled data, Scaling).  Dispatches on the data's type."""
+    raise NotImplementedError(type(data))
+
+
+@equilibrate.register
+def _(
     data: QPData,
     max_iter: int = 10,
     scale_cost: bool = False,
     epsilon: float = 1e-3,
 ) -> tuple[QPData, Scaling]:
-    """Compute and apply Ruiz scaling (preconditioner.hpp:64-222).  The
-    scaled data equals
+    """Dense registration.  The scaled data equals
 
         P <- c * Dx P Dx,  c_vec <- c * Dx c_vec,
         A <- Dy A Dx,      b <- Dy b,
@@ -111,9 +121,15 @@ def equilibrate(
     return scaled, Scaling(c=cost, d_x=d_x, d_y=d_y, d_z=d_z, d_b=d_b)
 
 
-def apply_scaling(data: QPData, s: Scaling) -> QPData:
+@singledispatch
+def apply_scaling(data, s: Scaling):
     """Apply a previously computed scaling to fresh (unscaled) data
     (preconditioner.hpp:176-205, the reuse_prev_scaling path)."""
+    raise NotImplementedError(type(data))
+
+
+@apply_scaling.register
+def _(data: QPData, s: Scaling) -> QPData:
     dx = s.d_x
     return dataclasses.replace(
         data,

@@ -62,7 +62,7 @@ def status_to_string(status: int) -> str:
 
 class KKTBackend(enum.Enum):
     """KKT solver backends (names as in ``piqp_tpu.KKTBackend``).  The port
-    implements ``dense_cholesky``; the others are later slices."""
+    implements all but ``sparse_host``, which is a later slice."""
 
     dense_cholesky = "dense_cholesky"
     dense_lu = "dense_lu"
@@ -76,10 +76,11 @@ class Settings:
     """Solver settings: the same fields and defaults as
     ``piqp_tpu.Settings`` (see there for each field's meaning).
 
-    ``pallas_kernels`` selects the condensed factor's representation: None
-    or True factor with the explicit inverse (L, Linv), through the
-    hand-written kernel on a CUDA tensor and its plain version on a CPU
-    tensor; False keeps the library Cholesky with triangular solves."""
+    ``pallas_kernels`` selects every backend's factor representation: None
+    or True factor with explicit inverses (L, Linv), through the
+    hand-written kernels on a CUDA tensor and their plain versions on a CPU
+    tensor; False keeps the library factorizations with triangular solves
+    (for ``dense_ldlt``, the blocked signed Cholesky of ``ops/ldlt.py``)."""
 
     rho_init: float = 1e-6
     delta_init: float = 1e-4
@@ -177,7 +178,7 @@ class Settings:
 
     @property
     def factor_inverse(self) -> bool:
-        """True when the condensed factor is kept as (L, Linv)."""
+        """True when the factors are kept with explicit inverses."""
         return self.pallas_kernels is not False
 
     def static_reg_rel(self) -> float:
@@ -236,9 +237,23 @@ def min0(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp(v.amin(dim=-1), max=0.0)
 
 
+def to_device(value, device):
+    """Move every tensor of a dataclass (or nested tuple) to ``device``."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    if value is None:
+        return None
+    if isinstance(value, tuple):
+        return tuple(to_device(v, device) for v in value)
+    return dataclasses.replace(value, **{
+        f.name: to_device(getattr(value, f.name), device)
+        for f in dataclasses.fields(value)
+    })
+
+
 def index(value, i):
     """Take problem(s) ``i`` (an int or an index tensor) from every tensor
-    of a dataclass; an int drops the batch dimension."""
+    of a dataclass (or nested tuple); an int drops the batch dimension."""
     if isinstance(value, torch.Tensor):
         return value[i]
     if value is None:
@@ -252,10 +267,15 @@ def index(value, i):
 
 
 def concat(values: list):
-    """Concatenate dataclasses of batched tensors along the batch."""
+    """Concatenate dataclasses (or nested tuples) of batched tensors along
+    the batch."""
     first = values[0]
     if isinstance(first, torch.Tensor):
         return torch.cat(values, dim=0)
+    if first is None:
+        return None
+    if isinstance(first, tuple):
+        return tuple(concat(list(vs)) for vs in zip(*values))
     return dataclasses.replace(first, **{
         f.name: concat([getattr(v, f.name) for v in values])
         for f in dataclasses.fields(first)
@@ -304,6 +324,19 @@ class QPData:
     @property
     def m(self) -> int:
         return self.G.shape[-2]
+
+
+@dataclasses.dataclass
+class FullKKTQPData(QPData):
+    """``QPData`` that routes the KKT layer to the full 3-block dense LU
+    backend (``KKTBackend.dense_lu``).  Identical fields; the data's type
+    selects the backend (``piqp_tpu/types.py:399-410``)."""
+
+
+@dataclasses.dataclass
+class LDLTKKTQPData(QPData):
+    """``QPData`` that routes the KKT layer to the full 3-block signed
+    Cholesky backend (``KKTBackend.dense_ldlt``, ``ops/ldlt.py``)."""
 
 
 @dataclasses.dataclass

@@ -1,17 +1,24 @@
-"""K1, the batched Cholesky-with-inverse, in the PyTorch port: its plain
-version against the JAX Pallas kernel (interpret mode on the CPU), the
-non-finite contract on indefinite input, the inverse solve, and the
-wrapper's argument checks.  The CUDA kernel itself is held against the
-plain version on the card by chip_smoke.py."""
+"""The port's kernels K1 (Cholesky with inverse), K2 (Cholesky with
+inverse and apply) and K3 (signed Cholesky with inverse): their plain
+versions against the JAX Pallas kernels (interpret mode on the CPU), the
+non-finite contract on indefinite or wrong-sign input, the inverse solves,
+and the wrappers' argument checks.  The CUDA kernels themselves are held
+against the plain versions on the card by chip_smoke.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from piqp_tpu.ops.pallas_chol import _pallas_chol_inv_batched
+from piqp_tpu.ops.pallas_chol import (
+    _pallas_chol_inv_apply_batched,
+    _pallas_chol_inv_batched,
+    _pallas_signed_chol_inv_batched,
+    _signed_inv_xla,
+)
 
-from piqp_tpu_torch.ops import chol_inv
+from piqp_tpu_torch.ops import chol_inv, ldlt, signed_chol_inv
 
 
 def _spd_batch(B, n, seed):
@@ -75,3 +82,141 @@ def test_no_launches_on_cpu():
     for dt in (torch.float32, torch.float64):
         chol_inv.cholesky_with_inverse(torch.as_tensor(_spd_batch(2, 6, 0), dtype=dt))
     assert (chol_inv.launches, chol_inv.launches_by_dtype) == before
+
+
+# ---------------------------------------------------------------------------
+# K2: factor + inverse + apply
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,r", [(4, 12), (8, 20), (33, 70)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_apply_reference_matches_jax_kernel(n, r, dtype):
+    K = _spd_batch(5, n, seed=n + r)
+    RHS = np.random.default_rng(r).standard_normal((5, n, r))
+    want = [np.asarray(a) for a in _pallas_chol_inv_apply_batched(
+        jnp.asarray(K, dtype), jnp.asarray(RHS, dtype))]
+    tdt = getattr(torch, dtype)
+    got = [a.numpy() for a in chol_inv.cholesky_inverse_apply(
+        torch.as_tensor(K, dtype=tdt), torch.as_tensor(RHS, dtype=tdt))]
+    tol = 5e-5 if dtype == "float32" else 1e-10
+    for g, w, what in zip(got, want, ("L", "Linv", "Y")):
+        np.testing.assert_allclose(g, w, atol=tol, rtol=tol, err_msg=what)
+    # Y really is K^-1 RHS
+    np.testing.assert_allclose(K @ got[2], RHS, atol=1e-3 if dtype == "float32" else 1e-9)
+
+
+def test_apply_indefinite_block_gives_nonfinite_for_that_block_only():
+    K = _spd_batch(3, 10, seed=2)
+    K[0, 3, 3] = -40.0
+    L, Linv, Y = chol_inv.cholesky_inverse_apply(
+        torch.as_tensor(K), torch.ones((3, 10, 24), dtype=torch.float64))
+    fin = [bool(torch.isfinite(a[i]).all()) for i in range(3) for a in (L, Linv, Y)]
+    assert fin == [False] * 3 + [True] * 6
+
+
+@pytest.mark.parametrize(
+    "K,RHS",
+    [
+        (torch.eye(4, dtype=torch.float64)[None], torch.ones((1, 4, 3), dtype=torch.float32)),
+        (torch.eye(4, dtype=torch.float64)[None], torch.ones((2, 4, 3), dtype=torch.float64)),
+        (torch.eye(4, dtype=torch.float64)[None], torch.ones((1, 5, 3), dtype=torch.float64)),
+    ],
+    ids=["dtype-mismatch", "batch-mismatch", "rows-mismatch"],
+)
+def test_apply_wrapper_rejects_bad_input(K, RHS):
+    with pytest.raises((TypeError, ValueError)):
+        chol_inv.cholesky_inverse_apply(K, RHS)
+
+
+# ---------------------------------------------------------------------------
+# K3: signed Cholesky with inverse
+# ---------------------------------------------------------------------------
+
+def _quasidef_batch(B, n, npos, seed):
+    """B quasi-definite matrices [[H, C'], [C, -M]] under one random
+    symmetric permutation (still factorizable without pivoting), with the
+    permuted sign vector."""
+    rng = np.random.default_rng(seed)
+    q = n - npos
+    Q1 = rng.standard_normal((B, npos, npos))
+    Q2 = rng.standard_normal((B, q, q))
+    K = np.zeros((B, n, n))
+    K[:, :npos, :npos] = Q1 @ np.swapaxes(Q1, 1, 2) + npos * np.eye(npos)
+    K[:, npos:, npos:] = -(Q2 @ np.swapaxes(Q2, 1, 2) + q * np.eye(q))
+    C = rng.standard_normal((B, q, npos))
+    K[:, npos:, :npos] = C
+    K[:, :npos, npos:] = np.swapaxes(C, 1, 2)
+    s = np.concatenate([np.ones(npos), -np.ones(q)])
+    perm = rng.permutation(n)
+    return np.ascontiguousarray(K[:, perm][:, :, perm]), s[perm]
+
+
+@pytest.mark.parametrize("n,npos", [(24, 10), (64, 40)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_signed_reference_matches_jax_kernel(n, npos, dtype):
+    K, s = _quasidef_batch(4, n, npos, seed=n)
+    Lj, Lij = (np.asarray(a) for a in _pallas_signed_chol_inv_batched(
+        jnp.asarray(K, dtype), jnp.asarray(s, dtype)))
+    tdt = getattr(torch, dtype)
+    Lt, Lit = (a.numpy() for a in signed_chol_inv.signed_cholesky_with_inverse(
+        torch.as_tensor(K, dtype=tdt), torch.as_tensor(s, dtype=tdt)))
+    tol = 5e-5 if dtype == "float32" else 1e-10
+    np.testing.assert_allclose(Lt, Lj, atol=tol, rtol=tol)
+    np.testing.assert_allclose(Lit, Lij, atol=50 * tol, rtol=50 * tol)
+    np.testing.assert_allclose((Lt * s) @ np.swapaxes(Lt, 1, 2), K,
+                               atol=50 * tol * np.abs(K).max())
+
+
+def test_signed_wrong_sign_pivot_gives_nonfinite_for_that_problem_only():
+    K, s = _quasidef_batch(3, 16, 8, seed=4)
+    j = int(np.nonzero(s > 0)[0][0])
+    K[1, j, j] = -50.0  # problem 1's pivot j disagrees with its sign
+    for L, Linv in (
+        (np.asarray(a) for a in _pallas_signed_chol_inv_batched(jnp.asarray(K), jnp.asarray(s))),
+        (a.numpy() for a in signed_chol_inv.signed_cholesky_with_inverse(
+            torch.as_tensor(K), torch.as_tensor(s))),
+    ):
+        fin = np.isfinite(L).all(axis=(1, 2)) & np.isfinite(Linv).all(axis=(1, 2))
+        assert fin.tolist() == [True, False, True]
+
+
+def test_signed_inv_solve_roundtrip():
+    K, s = _quasidef_batch(3, 32, 20, seed=9)
+    _, Linv = signed_chol_inv.signed_cholesky_with_inverse(torch.as_tensor(K), torch.as_tensor(s))
+    v = np.random.default_rng(1).standard_normal((3, 32))
+    x = signed_chol_inv.signed_inv_solve(Linv, torch.as_tensor(s), torch.as_tensor(v))
+    np.testing.assert_allclose(x.numpy(), np.linalg.solve(K, v[..., None])[..., 0], atol=1e-9)
+
+
+def test_blocked_inverse_matches_jax():
+    """The route above the kernel's size limit (``_signed_inv_xla``'s
+    counterpart), at a small block size."""
+    K, s = _quasidef_batch(2, 48, 30, seed=11)
+    Lj, Lij = jax.vmap(lambda k: _signed_inv_xla(k, jnp.asarray(s), block=16))(jnp.asarray(K))
+    Lt, Lit = ldlt.blocked_inverse(torch.as_tensor(K), torch.as_tensor(s), block=16)
+    np.testing.assert_allclose(Lt.numpy(), np.asarray(Lj), atol=1e-10, rtol=1e-10)
+    np.testing.assert_allclose(Lit.numpy(), np.asarray(Lij), atol=1e-10, rtol=1e-10)
+
+
+@pytest.mark.parametrize(
+    "K,s",
+    [
+        (torch.eye(4, dtype=torch.float16)[None], torch.ones(4, dtype=torch.float16)),
+        (torch.eye(4, dtype=torch.float64)[None], torch.ones(5, dtype=torch.float64)),
+        (torch.eye(4, dtype=torch.float64), torch.ones(4, dtype=torch.float64)),
+    ],
+    ids=["float16", "signs-length", "unbatched"],
+)
+def test_signed_wrapper_rejects_bad_input(K, s):
+    with pytest.raises((TypeError, ValueError)):
+        signed_chol_inv.signed_cholesky_with_inverse(K, s)
+
+
+def test_no_k2_k3_launches_on_cpu():
+    before = (dict(chol_inv.apply_launches_by_dtype), dict(signed_chol_inv.launches_by_dtype))
+    for dt in (torch.float32, torch.float64):
+        K = torch.as_tensor(_spd_batch(2, 6, 0), dtype=dt)
+        chol_inv.cholesky_inverse_apply(K, torch.ones((2, 6, 4), dtype=dt))
+        signed_chol_inv.signed_cholesky_with_inverse(K, torch.ones(6, dtype=dt))
+    after = (chol_inv.apply_launches_by_dtype, signed_chol_inv.launches_by_dtype)
+    assert after == before

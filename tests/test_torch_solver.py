@@ -206,10 +206,14 @@ def test_invalid_settings_and_unported_backends():
     s = piqp_tpu_torch.DenseSolver(piqp_tpu_torch.Settings(eps_abs=-1.0), device="cpu")
     s.setup(np.eye(2), np.zeros(2))
     assert s.solve() == piqp_tpu_torch.Status.INVALID_SETTINGS
-    for backend in ("dense_lu", "dense_ldlt", "multistage", "sparse_host"):
+    for backend in ("dense_lu", "dense_ldlt", "multistage"):
         settings = piqp_tpu_torch.Settings(kkt_solver=piqp_tpu_torch.KKTBackend(backend))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            piqp_tpu_torch.solve_dense(np.eye(2), np.zeros(2), settings=settings, device="cpu")
+        res = piqp_tpu_torch.solve_dense(np.eye(2), -np.ones(2), settings=settings, device="cpu")
+        assert int(res.info.status) == int(piqp_tpu_torch.Status.SOLVED)
+        np.testing.assert_allclose(res.x.numpy(), np.ones(2), atol=1e-8)
+    settings = piqp_tpu_torch.Settings(kkt_solver=piqp_tpu_torch.KKTBackend.sparse_host)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+        piqp_tpu_torch.solve_dense(np.eye(2), np.zeros(2), settings=settings, device="cpu")
     with pytest.raises(NotImplementedError):
         piqp_tpu_torch.solve_dense(
             np.eye(2), np.zeros(2), device="cpu",
