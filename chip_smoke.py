@@ -13,8 +13,13 @@ result.
 Phases:
   1. device and build: card name and power limit, versions, nvcc time;
   2. K1 (Cholesky with inverse) against its plain version, float32 and
-     float64, at n in {8, 33, 64, 128, 200, 256} (B = 5) and at the main
-     path's shape B = 1024, n = 128, with times and bounds;
+     float64, at n in {8, 33, 64, 128, 169, 170, 200, 240, 241, 256}
+     (B = 5; both sides of each dtype's limit between the resident and the
+     streamed kernel) and at the main path's shape B = 1024, n = 128, each
+     launch checked to take the route ``kernel_route`` names; indefinite
+     input on each route; times of the resident kernel, the streamed one
+     (through its private launcher), the plain version and the library at
+     the main path's shape, and bounds;
   2b. K2 (Cholesky with inverse and apply) and K3 (signed Cholesky with
      inverse) against their plain versions, float32 and float64: K2 at
      D in {4, 8, 16, 33, 64, 128} (N = 5, R = 2D + 4) and at the
@@ -25,11 +30,13 @@ Phases:
   3. main path: 1024 problems dense_strongly_convex_qp(128, 64, 64,
      seed=1000+i) (the benchmarks/make_batch.py set), cold with
      mixed precision and one warm re-solve round, with K1 launch counts
-     per dtype and a host-side KKT optimality check of every result;
+     per dtype and per route (all resident) and a host-side KKT optimality
+     check of every result;
   4. float64 batch (B = 64), one DenseSolver on the card, and the first 8
      problems run again on the CPU (plain versions), in float64 and with
      mixed precision;
-  5. a profile of the warm round (kernel time by name, device busy share);
+  5. a profile of the warm round (kernel time by name, K1's share, device
+     busy share);
   6. dense_ldlt fleet: the first 256 problems of phase 3 through the full
      3-block KKT backend (K3), mixed cold, one warm round and a float64
      cold solve of 64, plus a float64 dense_lu batch of 64;
@@ -61,7 +68,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 
 MAIN_B, MAIN_N, MAIN_P, MAIN_M = 1024, 128, 64, 64
-K1_SHAPES = [(5, 8), (5, 33), (5, 64), (5, 128), (5, 200), (5, 256), (MAIN_B, MAIN_N)]
+K1_SHAPES = [(5, 8), (5, 33), (5, 64), (5, 128), (5, 169), (5, 170), (5, 200), (5, 240),
+             (5, 241), (5, 256), (MAIN_B, MAIN_N)]
 K1_TOL = {"float32": 5e-5, "float64": 1e-11}
 # K2's Y = K^-1 RHS against its plain version, relative to max |Y_ref|
 K2_Y_RTOL = {"float32": 1e-5, "float64": 1e-13}
@@ -88,19 +96,24 @@ def _smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(torch, fn, repeats: int = 9) -> float:
-    """Median of per-call CUDA-event times after one warm-up call."""
+def _time_ms(torch, fn, count: int = 20, windows: int = 3) -> float:
+    """Time per call of ``fn``: CUDA events around a loop of ``count``
+    calls, divided by the count, after two warm-up calls; the median of
+    ``windows`` such loops.  The calls are queued back to back, so the
+    wrapper's host work overlaps the previous launch."""
+    fn()
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(repeats):
+    for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(count):
+            fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / count)
     return statistics.median(times)
 
 
@@ -166,8 +179,8 @@ def _reset_counts() -> None:
     from piqp_tpu_torch.ops import chol_inv, signed_chol_inv
 
     chol_inv.launches = 0
-    for counts in (chol_inv.launches_by_dtype, chol_inv.apply_launches_by_dtype,
-                   signed_chol_inv.launches_by_dtype):
+    for counts in (chol_inv.launches_by_dtype, chol_inv.launches_by_route,
+                   chol_inv.apply_launches_by_dtype, signed_chol_inv.launches_by_dtype):
         for k in counts:
             counts[k] = 0
 
@@ -246,7 +259,8 @@ def _check_k2(torch, smi) -> list:
         RHS = torch.as_tensor(np.random.default_rng(7).uniform(-1, 1, (N, D, R)),
                               dtype=dtype, device="cuda")
         ms = _time_ms(torch, lambda: chol_inv.cholesky_inverse_apply(K, RHS))
-        plain_ms = _time_ms(torch, lambda: chol_inv.chol_inv_apply_reference(K, RHS), repeats=5)
+        plain_ms = _time_ms(torch, lambda: chol_inv.chol_inv_apply_reference(K, RHS),
+                            count=3, windows=1)
         eye = torch.eye(D, dtype=dtype, device="cuda").expand_as(K)
 
         def library():
@@ -307,7 +321,8 @@ def _check_k3(torch, smi) -> list:
         B, n = K3_SHAPES[-1]
         K, signs = _quasidef_batch(torch, B, n, dtype, seed=7)
         ms = _time_ms(torch, lambda: sci.signed_cholesky_with_inverse(K, signs))
-        plain_ms = _time_ms(torch, lambda: sci.signed_chol_inv_reference(K, signs), repeats=3)
+        plain_ms = _time_ms(torch, lambda: sci.signed_chol_inv_reference(K, signs),
+                            count=3, windows=1)
         bound_ms, bound_by = _bound(name, 3 * B * n * n * K.element_size(), 2 * B * n ** 3 / 3)
         print(f"[K3 {name}] B={B} n={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms * 1e3:.1f} us ({bound_by}); no library call computes "
@@ -422,40 +437,68 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s), library {_build.LIB_PATH.name}")
     print(_build.BuildInfo.log.strip())
 
-    # ---- 2. K1 against its plain version on the card
+    # ---- 2. K1 against its plain version on the card, on both kernel routes
+    def k1_check(name, K, L, Linv, what) -> float:
+        """L and Linv against the plain version; returns the worst error."""
+        tol = K1_TOL[name]
+        n = K.shape[-1]
+        torch.cuda.synchronize()
+        L_ref, Linv_ref = chol_inv.chol_inv_reference(K)
+        err_L = (L - L_ref).abs().max().item()
+        eye = torch.eye(n, dtype=K.dtype, device="cuda")
+        err_I = (L @ Linv - eye).abs().max().item()
+        err_Li = (Linv - Linv_ref).abs().max().item()
+        print(f"[K1 {name}] {what} B={K.shape[0]} n={n}: |L-L_ref| {err_L:.3e} "
+              f"|Linv-Linv_ref| {err_Li:.3e} |L Linv - I| {err_I:.3e}")
+        if not (err_L <= tol * max(1.0, L_ref.abs().max().item())
+                and err_I <= 50 * tol):
+            raise AssertionError(f"K1 {name} {what} B={K.shape[0]} n={n} disagrees with "
+                                 f"its plain version")
+        if bool(torch.triu(L, 1).any()) or bool(torch.triu(Linv, 1).any()):
+            raise AssertionError(f"K1 {name} {what} n={n}: nonzero upper triangle")
+        return max(err_L, err_Li)
+
+    def k1_routed(K):
+        """cholesky_with_inverse, checked to launch the route kernel_route names."""
+        route = chol_inv.kernel_route(K.shape[-1], K.dtype)
+        before = dict(chol_inv.launches_by_route)
+        L, Linv = chol_inv.cholesky_with_inverse(K)
+        grown = {k: chol_inv.launches_by_route[k] - before[k] for k in before}
+        if grown != {k: int(k == route) for k in before}:
+            raise AssertionError(f"K1 n={K.shape[-1]} {K.dtype}: route {route}, launches {grown}")
+        return route, L, Linv
+
     kernels = []
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).removeprefix("torch.")
-        tol = K1_TOL[name]
         worst = 0.0
         for B, n in K1_SHAPES:
             K = _spd_batch(torch, B, n, dtype, seed=n)
-            L, Linv = chol_inv.cholesky_with_inverse(K)
-            torch.cuda.synchronize()
-            L_ref, Linv_ref = chol_inv.chol_inv_reference(K)
-            err_L = (L - L_ref).abs().max().item()
-            eye = torch.eye(n, dtype=dtype, device="cuda")
-            err_I = (L @ Linv - eye).abs().max().item()
-            err_Li = (Linv - Linv_ref).abs().max().item()
-            print(f"[K1 {name}] B={B} n={n}: |L-L_ref| {err_L:.3e} "
-                  f"|Linv-Linv_ref| {err_Li:.3e} |L Linv - I| {err_I:.3e}")
-            if not (err_L <= tol * max(1.0, L_ref.abs().max().item())
-                    and err_I <= 50 * tol):
-                raise AssertionError(f"K1 {name} B={B} n={n} disagrees with its plain version")
-            worst = max(worst, err_L, err_Li)
-        # one indefinite problem gives non-finite output for itself only
-        K = _spd_batch(torch, 4, 40, dtype, seed=1)
-        K[2, 7, 7] = -1e3
-        L, Linv = chol_inv.cholesky_with_inverse(K)
-        fin = (torch.isfinite(L).flatten(1).all(1) & torch.isfinite(Linv).flatten(1).all(1))
-        if fin.tolist() != [True, True, False, True]:
-            raise AssertionError(f"K1 {name}: indefinite input gave finite flags {fin.tolist()}")
+            route, L, Linv = k1_routed(K)
+            worst = max(worst, k1_check(name, K, L, Linv, route))
+        # one indefinite problem gives non-finite output for itself only, on
+        # each route
+        for n in (40, 250):
+            K = _spd_batch(torch, 4, n, dtype, seed=1)
+            K[2, 7, 7] = -1e3
+            route, L, Linv = k1_routed(K)
+            fin = (torch.isfinite(L).flatten(1).all(1) & torch.isfinite(Linv).flatten(1).all(1))
+            print(f"[K1 {name}] {route} n={n}: one indefinite problem of 4, finite flags "
+                  f"{fin.tolist()}")
+            if fin.tolist() != [True, True, False, True]:
+                raise AssertionError(f"K1 {name} {route}: indefinite input gave finite "
+                                     f"flags {fin.tolist()}")
 
+        # the main path's shape: the resident kernel, the streamed one
+        # through its private launcher, the plain version and the library
         K = _spd_batch(torch, MAIN_B, MAIN_N, dtype, seed=7)
-        before = chol_inv.launches
+        if chol_inv.kernel_route(MAIN_N, dtype) != "resident":
+            raise AssertionError(f"K1 {name} n={MAIN_N} is not routed to the resident kernel")
+        L, Linv = chol_inv._launch(K, "streamed")
+        worst_streamed = k1_check(name, K, L, Linv, "streamed")
         ms = _time_ms(torch, lambda: chol_inv.cholesky_with_inverse(K))
-        timing_launches = chol_inv.launches - before
-        plain_ms = _time_ms(torch, lambda: chol_inv.chol_inv_reference(K), repeats=5)
+        streamed_ms = _time_ms(torch, lambda: chol_inv._launch(K, "streamed"), count=5)
+        plain_ms = _time_ms(torch, lambda: chol_inv.chol_inv_reference(K), count=3, windows=1)
         eye = torch.eye(MAIN_N, dtype=dtype, device="cuda").expand_as(K)
 
         def library():
@@ -465,15 +508,18 @@ def main() -> int:
         library_ms = _time_ms(torch, library)
         bound_ms, bound_by = _bound(name, 3 * MAIN_B * MAIN_N * MAIN_N * K.element_size(),
                                     2 * MAIN_B * MAIN_N ** 3 / 3)
-        print(f"[K1 {name}] B={MAIN_B} n={MAIN_N}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {library_ms:.4f} ms, bound {bound_ms * 1e3:.1f} us ({bound_by}), "
-              f"{timing_launches} timing launches; {smi}")
+        print(f"[K1 {name}] B={MAIN_B} n={MAIN_N}: resident kernel {ms:.4f} ms, streamed "
+              f"kernel {streamed_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.1f} us ({bound_by}); "
+              f"streamed/resident {streamed_ms / ms:.2f}x, library/resident "
+              f"{library_ms / ms:.2f}x; {smi}")
         kernels.append(dict(
             name=f"chol_inv_{name}", route="cuda",
-            source="piqp_tpu_torch/csrc/chol_inv.cu",
+            source="piqp_tpu_torch/csrc/chol_inv_resident.cu",
             replaces="piqp_tpu/ops/pallas_chol.py:65",
-            launches=None, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+            launches=None, max_abs_err=max(worst, worst_streamed), ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            streamed_ms=streamed_ms,
         ))
 
     # ---- 2b. K2 and K3 against their plain versions on the card
@@ -515,7 +561,12 @@ def main() -> int:
     data_w = prepare_batch(moved)
     warm_pt = warm_from_result(cold)
     warm, warm_s = run_round("warm", data_w, warm_pt)
-    main_launches = {k: v for k, v in chol_inv.launches_by_dtype.items()}
+    main_launches = dict(chol_inv.launches_by_dtype)
+    main_routes = dict(chol_inv.launches_by_route)
+    print(f"[main] K1 launches in the cold + warm rounds: by dtype {main_launches}, "
+          f"by route {main_routes}")
+    if main_routes != {"resident": sum(main_launches.values()), "streamed": 0}:
+        raise AssertionError(f"main path K1 launches by route {main_routes}: all must be resident")
 
     cold_viol = _check_round(problems, cold, "cold")
     warm_viol = _check_round(moved, warm, "warm")
@@ -579,7 +630,7 @@ def main() -> int:
 
     # ---- 5. where the warm round's device time goes
     _profile_round(torch, "warm", lambda: solve_batch(data_w, settings, warm=warm_pt),
-                   warm_s, smi)
+                   warm_s, smi, ("chol_inv_resident_kernel",))
 
     # ---- 6. dense_ldlt fleet: the full 3-block KKT through K3
     lprobs, lmoved = problems[:LDLT_B], moved[:LDLT_B]

@@ -1,6 +1,10 @@
-// Batched Cholesky factorization with fused triangular inverse (K1).
+// Batched Cholesky factorization with fused triangular inverse (K1), with
+// the workspace streamed through device memory.
 //
-// Replaces the TPU kernel piqp_tpu/ops/pallas_chol.py::_chol_inv_kernel.
+// Replaces the TPU kernel piqp_tpu/ops/pallas_chol.py::_chol_inv_kernel for
+// the n whose working set does not fit in a block's shared memory, up to
+// 256 (float32 n > 240, float64 n > 169); smaller n take the resident
+// kernel of chol_inv_resident.cu (ops/chol_inv.py routes by shape).
 // For each SPD matrix K of a (B, n, n) batch it computes the lower factor
 // L = chol(K), with its strict upper triangle zeroed, and Linv = L^-1, by
 // the TPU kernel's per-column recurrence:
@@ -16,25 +20,25 @@
 //
 // Bound on an H100 SXM (data sheet: 3.35 TB/s HBM3; 67 TFLOP/s in f32
 // outside the tensor cores and 67 TFLOP/s in f64 on them, the highest rate
-// of each type).  At the main path's shape, B = 1024 and n = 128, the
-// kernel must read K once and write L and Linv once: 3 B n^2 elements,
-// 201 MB in f32 (60 us) or 403 MB in f64 (120 us).  It does about 2n^3/3
-// flops per matrix (n^3/3 for the factor, n^3/3 for the triangular
-// inverse), 1.4 GFLOP in all: 21 us in either type.  So it is bound by
-// bytes in both types.
+// of each type).  The kernel must read K once and write L and Linv once,
+// 3 B n^2 elements, against about 2n^3/3 flops per matrix (n^3/3 for the
+// factor, n^3/3 for the triangular inverse); at B = 1024 and n = 128 that
+// is 201 MB in f32 (60 us) or 403 MB in f64 (120 us) against 1.4 GFLOP
+// (21 us in either type), so it is bound by bytes in both types.
 //
 // Design: one thread block of 256 threads per matrix, so the grid is the
 // batch and no padding is needed (the TPU's batch tiles existed for its
 // sequential grid).  The recurrence itself is chol_recurrence.cuh, shared
 // with K2 and K3.  The workspace lives in the L output buffer in device
-// memory: one n = 128 matrix is 64 KB in f32 and 128 KB in f64, so K and
-// Linv together do not fit in a block's 227 KB of shared memory at n = 256,
-// while the ~1000 blocks' working sets stay mostly in the 50 MB L2.  The
-// pivot column and row j of L are staged in shared memory.  Each step has
-// two phases split by __syncthreads: (1) read the pivot and stage the
-// scaled column and row j; (2) write the column, apply the rank-1 update
-// to the lower trailing block and form row j of Linv.  Shared-memory tiles
-// and tensor-core trailing updates are left for later work.
+// memory, since at these n one matrix does not fit in a block's 227 KB of
+// shared memory (256 KB in f32 at n = 256), and stays mostly in the 50 MB
+// L2.  The pivot column and row j of L are staged in shared memory.  Each
+// step has two phases split by __syncthreads: (1) read the pivot and stage
+// the scaled column and row j; (2) write the column, apply the rank-1
+// update to the lower trailing block and form row j of Linv, each entry a
+// dot product over earlier rows read from device memory, so each step
+// waits on a chain of dependent loads (PERF.md times this kernel beside
+// the resident one at n = 128).
 
 #include <cuda_runtime.h>
 
@@ -87,12 +91,12 @@ int launch(const T* K, T* L, T* Linv, int B, int n, void* stream) {
 // Plain C interface (bound with ctypes).  Inputs and outputs are contiguous
 // (B, n, n) device buffers; the launch goes on `stream` and does not
 // synchronise.  Returns the cudaError_t of the launch, 0 on success.
-extern "C" int piqp_chol_inv_f32(const float* K, float* L, float* Linv,
-                                 int B, int n, void* stream) {
+extern "C" int piqp_chol_inv_streamed_f32(const float* K, float* L, float* Linv,
+                                          int B, int n, void* stream) {
   return launch<float>(K, L, Linv, B, n, stream);
 }
 
-extern "C" int piqp_chol_inv_f64(const double* K, double* L, double* Linv,
-                                 int B, int n, void* stream) {
+extern "C" int piqp_chol_inv_streamed_f64(const double* K, double* L, double* Linv,
+                                          int B, int n, void* stream) {
   return launch<double>(K, L, Linv, B, n, stream);
 }

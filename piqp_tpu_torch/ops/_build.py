@@ -34,8 +34,10 @@ NVCC_FLAGS = (
 # (name, argtypes) of every C entry point the library exports
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {
-    "piqp_chol_inv_f32": (_PTR, _PTR, _PTR, _INT, _INT, _PTR),
-    "piqp_chol_inv_f64": (_PTR, _PTR, _PTR, _INT, _INT, _PTR),
+    "piqp_chol_inv_resident_f32": (_PTR, _PTR, _PTR, _INT, _INT, _PTR),
+    "piqp_chol_inv_resident_f64": (_PTR, _PTR, _PTR, _INT, _INT, _PTR),
+    "piqp_chol_inv_streamed_f32": (_PTR, _PTR, _PTR, _INT, _INT, _PTR),
+    "piqp_chol_inv_streamed_f64": (_PTR, _PTR, _PTR, _INT, _INT, _PTR),
     "piqp_chol_inv_apply_f32": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
     "piqp_chol_inv_apply_f64": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
     "piqp_signed_chol_inv_f32": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR),

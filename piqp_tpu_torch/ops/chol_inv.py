@@ -6,10 +6,17 @@ Counterpart of ``piqp_tpu/ops/pallas_chol.py`` for its first kernel,
 and Linv = L^-1; every later KKT solve is then two matrix products against
 Linv (``inv_solve``).
 
-- On a CUDA tensor with n <= 256 it launches the hand-written kernel
-  ``csrc/chol_inv.cu`` (built at first use by ``ops/_build.py``).  Above
-  n = 256 it takes the library route, as the JAX package does outside its
-  kernel (``_chol_inv_xla``).
+- On a CUDA tensor, ``kernel_route(n, dtype)`` picks one of two
+  hand-written kernels (built at first use by ``ops/_build.py``) or the
+  library, by shape alone:
+  - ``"resident"``, ``csrc/chol_inv_resident.cu``: the matrix stays in one
+    block's shared memory, for n <= ``RESIDENT_MAX_N[dtype]`` (240 in
+    float32, 169 in float64);
+  - ``"streamed"``, ``csrc/chol_inv.cu``: the workspace in device memory,
+    above that up to n = ``MAX_KERNEL_N`` (256);
+  - ``"library"`` above n = 256, as the JAX package does outside its
+    kernel (``_chol_inv_xla``).
+  A launch that fails raises; no route stands in for another.
 - On a CPU tensor it runs ``chol_inv_reference``, the kernel's plain
   PyTorch version: the same column recurrence, batched over B.
 
@@ -33,13 +40,40 @@ import torch
 
 MAX_KERNEL_N = 256
 _DTYPES = (torch.float32, torch.float64)
+# dynamic shared memory one H100 thread block may opt into (227 KB)
+SMEM_PER_BLOCK = 232_448
+
+
+def resident_smem_bytes(n: int, itemsize: int) -> int:
+    """Shared memory of the resident kernel: one n x n work square with an
+    odd row pitch (n | 1) and the n-vector of L's diagonal."""
+    return (n * (n | 1) + n) * itemsize
+
+
+# the largest n whose resident working set fits in one block
+RESIDENT_MAX_N = {
+    str(dt).removeprefix("torch."): max(
+        n for n in range(1, MAX_KERNEL_N + 1)
+        if resident_smem_bytes(n, dt.itemsize) <= SMEM_PER_BLOCK
+    )
+    for dt in _DTYPES
+}
 
 # Kernel launches made by ``cholesky_with_inverse`` (never by the plain
-# version or the library route), in total and per dtype;
+# version or the library route), in total, per dtype and per route;
 # ``apply_launches_by_dtype`` the same per dtype for ``cholesky_inverse_apply``.
 launches = 0
 launches_by_dtype = {"float32": 0, "float64": 0}
+launches_by_route = {"resident": 0, "streamed": 0}
 apply_launches_by_dtype = {"float32": 0, "float64": 0}
+
+
+def kernel_route(n: int, dtype: torch.dtype) -> str:
+    """Where a CUDA batch of n x n matrices of ``dtype`` goes: "resident",
+    "streamed" or "library"."""
+    if n <= RESIDENT_MAX_N[str(dtype).removeprefix("torch.")]:
+        return "resident"
+    return "streamed" if n <= MAX_KERNEL_N else "library"
 
 
 def _check(K: torch.Tensor) -> None:
@@ -82,7 +116,9 @@ def _chol_inv_library(K: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return L, torch.linalg.solve_triangular(L, eye, upper=False)
 
 
-def _launch(K: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _launch(K: torch.Tensor, route: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel of ``route`` ("resident" or "streamed") on a CUDA
+    batch."""
     global launches
     from ._build import library
 
@@ -91,31 +127,34 @@ def _launch(K: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     B, n, _ = K.shape
     L = torch.empty_like(K)
     Linv = torch.empty_like(K)
-    lib = library()
-    fn = lib.piqp_chol_inv_f32 if K.dtype == torch.float32 else lib.piqp_chol_inv_f64
+    suffix = "f32" if K.dtype == torch.float32 else "f64"
+    fn = getattr(library(), f"piqp_chol_inv_{route}_{suffix}")
     with torch.cuda.device(K.device):
         stream = torch.cuda.current_stream(K.device).cuda_stream
         rc = fn(K.data_ptr(), L.data_ptr(), Linv.data_ptr(), B, n, stream)
     if rc != 0:
-        raise RuntimeError(f"chol_inv kernel launch failed with cudaError_t {rc}")
+        raise RuntimeError(f"chol_inv {route} kernel launch failed with cudaError_t {rc}")
     launches += 1
     launches_by_dtype[str(K.dtype).removeprefix("torch.")] += 1
+    launches_by_route[route] += 1
     return L, Linv
 
 
 def cholesky_with_inverse(K: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(L, Linv) for a (B, n, n) batch of SPD matrices, float32 or float64.
 
-    CUDA tensor: the hand-written kernel (n <= 256) or the library route
-    (n > 256).  CPU tensor: the plain version.  Any other device raises."""
+    CUDA tensor: the resident or the streamed kernel, or the library route,
+    as ``kernel_route`` says.  CPU tensor: the plain version.  Any other
+    device raises."""
     _check(K)
     if K.device.type == "cpu":
         return chol_inv_reference(K)
     if K.device.type != "cuda":
         raise ValueError(f"cholesky_with_inverse runs on cuda or cpu, not {K.device}")
-    if K.shape[-1] > MAX_KERNEL_N:
+    route = kernel_route(K.shape[-1], K.dtype)
+    if route == "library":
         return _chol_inv_library(K)
-    return _launch(K)
+    return _launch(K, route)
 
 
 def inv_solve(Linv: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -27,7 +27,7 @@ def _spd_batch(B, n, seed):
     return Q @ np.swapaxes(Q, 1, 2) + n * np.eye(n)
 
 
-@pytest.mark.parametrize("n", [8, 32, 100])
+@pytest.mark.parametrize("n", [8, 32, 100, 128])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_reference_matches_jax_kernel(n, dtype):
     K = _spd_batch(5, n, seed=n)
@@ -78,10 +78,48 @@ def test_wrapper_rejects_bad_input(K):
 
 
 def test_no_launches_on_cpu():
-    before = (chol_inv.launches, dict(chol_inv.launches_by_dtype))
+    before = (chol_inv.launches, dict(chol_inv.launches_by_dtype),
+              dict(chol_inv.launches_by_route))
     for dt in (torch.float32, torch.float64):
-        chol_inv.cholesky_with_inverse(torch.as_tensor(_spd_batch(2, 6, 0), dtype=dt))
-    assert (chol_inv.launches, chol_inv.launches_by_dtype) == before
+        for n in (6, 200):  # a resident and, in float64, a streamed shape
+            chol_inv.cholesky_with_inverse(torch.as_tensor(_spd_batch(2, n, 0), dtype=dt))
+    after = (chol_inv.launches, chol_inv.launches_by_dtype, chol_inv.launches_by_route)
+    assert after == before
+
+
+@pytest.mark.parametrize(
+    "n,dtype,route",
+    [
+        (8, torch.float32, "resident"),
+        (128, torch.float32, "resident"),
+        (128, torch.float64, "resident"),
+        (169, torch.float64, "resident"),
+        (170, torch.float64, "streamed"),
+        (240, torch.float32, "resident"),
+        (241, torch.float32, "streamed"),
+        (256, torch.float32, "streamed"),
+        (256, torch.float64, "streamed"),
+        (257, torch.float32, "library"),
+        (257, torch.float64, "library"),
+    ],
+)
+def test_kernel_route(n, dtype, route):
+    assert chol_inv.kernel_route(n, dtype) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_resident_limit_fills_the_block(dtype):
+    """The resident limit is the largest n whose work square and diagonal
+    fit in one block's shared memory; the next n does not fit."""
+    name = str(dtype).removeprefix("torch.")
+    n = chol_inv.RESIDENT_MAX_N[name]
+    assert n == {"float32": 240, "float64": 169}[name]
+    assert chol_inv.resident_smem_bytes(n, dtype.itemsize) <= chol_inv.SMEM_PER_BLOCK
+    assert chol_inv.resident_smem_bytes(n + 1, dtype.itemsize) > chol_inv.SMEM_PER_BLOCK
+    # the main path's n = 128: three float32 blocks or one float64 block
+    # share an SM's 228 KB, each block with 1 KB reserved by the driver
+    per_sm = 233_472 // (chol_inv.resident_smem_bytes(128, dtype.itemsize) + 1024)
+    assert per_sm == {"float32": 3, "float64": 1}[name]
 
 
 # ---------------------------------------------------------------------------
