@@ -178,7 +178,6 @@ def _reset_counts() -> None:
     """Zero the launch counts of every kernel wrapper."""
     from piqp_tpu_torch.ops import chol_inv, signed_chol_inv
 
-    chol_inv.launches = 0
     for counts in (chol_inv.launches_by_dtype, chol_inv.launches_by_route,
                    chol_inv.apply_launches_by_dtype, signed_chol_inv.launches_by_dtype):
         for k in counts:
@@ -514,7 +513,7 @@ def main() -> int:
               f"streamed/resident {streamed_ms / ms:.2f}x, library/resident "
               f"{library_ms / ms:.2f}x; {smi}")
         kernels.append(dict(
-            name=f"chol_inv_{name}", route="cuda",
+            name=f"chol_inv_{name}", route="cuda", kernel_route="resident",
             source="piqp_tpu_torch/csrc/chol_inv_resident.cu",
             replaces="piqp_tpu/ops/pallas_chol.py:65",
             launches=None, max_abs_err=max(worst, worst_streamed), ms=ms, plain_ms=plain_ms,

@@ -60,9 +60,8 @@ RESIDENT_MAX_N = {
 }
 
 # Kernel launches made by ``cholesky_with_inverse`` (never by the plain
-# version or the library route), in total, per dtype and per route;
+# version or the library route), per dtype and per route;
 # ``apply_launches_by_dtype`` the same per dtype for ``cholesky_inverse_apply``.
-launches = 0
 launches_by_dtype = {"float32": 0, "float64": 0}
 launches_by_route = {"resident": 0, "streamed": 0}
 apply_launches_by_dtype = {"float32": 0, "float64": 0}
@@ -119,7 +118,6 @@ def _chol_inv_library(K: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def _launch(K: torch.Tensor, route: str) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel of ``route`` ("resident" or "streamed") on a CUDA
     batch."""
-    global launches
     from ._build import library
 
     if not K.is_contiguous():
@@ -134,7 +132,6 @@ def _launch(K: torch.Tensor, route: str) -> tuple[torch.Tensor, torch.Tensor]:
         rc = fn(K.data_ptr(), L.data_ptr(), Linv.data_ptr(), B, n, stream)
     if rc != 0:
         raise RuntimeError(f"chol_inv {route} kernel launch failed with cudaError_t {rc}")
-    launches += 1
     launches_by_dtype[str(K.dtype).removeprefix("torch.")] += 1
     launches_by_route[route] += 1
     return L, Linv
