@@ -116,7 +116,7 @@ def test_resident_limit_fills_the_block(dtype):
     assert chol_inv.resident_smem_bytes(n, dtype.itemsize) <= chol_inv.SMEM_PER_BLOCK
     assert chol_inv.resident_smem_bytes(n + 1, dtype.itemsize) > chol_inv.SMEM_PER_BLOCK
     # the main path's n = 128: three float32 blocks or one float64 block
-    # share an SM's 228 KB, each block with 1 KB reserved by the driver
+    # share an SM's 228 KB, each block with 1 KB of it reserved by the system
     per_sm = 233_472 // (chol_inv.resident_smem_bytes(128, dtype.itemsize) + 1024)
     assert per_sm == {"float32": 3, "float64": 1}[name]
 
