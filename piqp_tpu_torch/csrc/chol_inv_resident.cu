@@ -26,9 +26,9 @@
 // triangle holds L^T, and the n-vector diag holds d = diag(L).
 //
 // The columns go in panels of kNb = 8.  Per panel [j0, j1):
-//   A. one warp factors the 8 x 8 diagonal block and inverts its factor,
-//      all in registers, every lane on the same values: L_pp^T and Linv_pp
-//      go into the block, d into diag;
+//   A. one warp factors the 8 x 8 diagonal block and inverts its factor
+//      by the same elimination, all in registers, every lane on the same
+//      values: L_pp^T and Linv_pp go into the block, d into diag;
 //   B. one thread per column x outside the panel forms the panel rows'
 //      strip: Linv[panel, x] = Linv_pp Z[panel, x] left of the panel, and
 //      L[x, panel]^T = Linv_pp W[x, panel]^T below it;
@@ -184,11 +184,12 @@ __device__ __forceinline__ void store_factors(const T* M, const T* diag, T* __re
 }
 
 // Phase A of a panel, run by one warp: factor the panel's nbp x nbp
-// diagonal block D = L_pp L_pp^T and invert L_pp in place, all in
-// registers; every lane does the same arithmetic on the same values, so
-// no lane waits on another.  Then the block goes to its final place:
-// L_pp^T in M's upper block, d into diag, Linv_pp in M's lower block
-// (1/d on the diagonal).  Rows past nbp are padded with the identity.
+// diagonal block D = L_pp L_pp^T and invert L_pp, all in registers, by
+// the same carried-identity elimination as the whole matrix, so the
+// inverse adds no steps to the chain of pivots; every lane does the same
+// arithmetic on the same values.  L_pp^T goes into M's upper block as it
+// is formed, d into diag, Linv_pp into M's lower block.  Rows past nbp are
+// padded with the identity.
 template <typename T>
 __device__ __forceinline__ void factor_diagonal_block(T* M, T* diag, int P, int j0, int nbp) {
   const int lane = threadIdx.x & 31;
@@ -200,39 +201,24 @@ __device__ __forceinline__ void factor_diagonal_block(T* M, T* diag, int P, int 
       a[i][k] = i < nbp ? M[(j0 + i) * P + j0 + k] : T(i == k ? 1 : 0);
     }
   }
-  T dinv[kNb];
 #pragma unroll
   for (int k = 0; k < kNb; ++k) {
-    dinv[k] = rsqrt_of(a[k][k]);
-    a[k][k] *= dinv[k];
+    const T dinv = rsqrt_of(a[k][k]);
+    if (lane == k && k < nbp) diag[j0 + k] = a[k][k] * dinv;
 #pragma unroll
-    for (int i = k + 1; i < kNb; ++i) a[i][k] *= dinv[k];
+    for (int c = 0; c < k; ++c) a[k][c] *= dinv;
+    a[k][k] = dinv;
+    T v[kNb];
+#pragma unroll
+    for (int i = k + 1; i < kNb; ++i) {
+      v[i] = a[i][k] * dinv;
+      a[i][k] = T(0);
+      if (lane == i && i < nbp) M[(j0 + k) * P + j0 + i] = v[i];
+    }
 #pragma unroll
     for (int i = k + 1; i < kNb; ++i) {
 #pragma unroll
-      for (int m = k + 1; m <= i; ++m) a[i][m] -= a[i][k] * a[m][k];
-    }
-  }
-  // lane t < nbp writes row t: L[t, k] into L^T, d_t into diag
-#pragma unroll
-  for (int i = 0; i < kNb; ++i) {
-    if (i == lane && i < nbp) {
-#pragma unroll
-      for (int k = 0; k < i; ++k) M[(j0 + k) * P + j0 + i] = a[i][k];
-      diag[j0 + i] = a[i][i];
-    }
-  }
-  // Linv_pp in place, column by column from the last (LAPACK's trti2):
-  // Linv[i, j] = -(sum_{j<k<=i} Linv[i, k] L[k, j]) / d_j
-#pragma unroll
-  for (int j = kNb - 1; j >= 0; --j) {
-    a[j][j] = dinv[j];
-#pragma unroll
-    for (int i = kNb - 1; i > j; --i) {
-      T acc = T(0);
-#pragma unroll
-      for (int k = j + 1; k <= i; ++k) acc += a[i][k] * a[k][j];
-      a[i][j] = -acc * dinv[j];
+      for (int c = 0; c <= i; ++c) a[i][c] -= v[i] * (c < k ? a[k][c] : (c == k ? dinv : v[c]));
     }
   }
 #pragma unroll
