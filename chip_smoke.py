@@ -206,6 +206,13 @@ def _quasidef_batch(torch, B, n, dtype, seed):
             torch.as_tensor(signs, dtype=dtype, device="cuda"))
 
 
+def _factor_elements(B, n):
+    """Elements a factor-with-inverse of B symmetric n x n matrices must
+    move: each matrix's lower triangle read, its L and Linv written whole
+    (zeros included)."""
+    return B * (n * (n + 1) // 2 + 2 * n * n)
+
+
 def _bound(name, nbytes, flops):
     """(bound_ms, bound_by) on the card's data-sheet peaks.  A Cholesky
     factor and a triangular inverse of an n x n matrix take about n^3/3
@@ -269,7 +276,7 @@ def _check_k2(torch, smi) -> list:
 
         library_ms = _time_ms(torch, library)
         bound_ms, bound_by = _bound(
-            name, N * (3 * D * D + 2 * D * R) * K.element_size(),
+            name, (_factor_elements(N, D) + 2 * N * D * R) * K.element_size(),
             N * (2 * D ** 3 / 3 + 2 * D * D * R))
         print(f"[K2 {name}] N={N} D={D} R={R}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}); {smi}")
@@ -322,7 +329,8 @@ def _check_k3(torch, smi) -> list:
         ms = _time_ms(torch, lambda: sci.signed_cholesky_with_inverse(K, signs))
         plain_ms = _time_ms(torch, lambda: sci.signed_chol_inv_reference(K, signs),
                             count=3, windows=1)
-        bound_ms, bound_by = _bound(name, 3 * B * n * n * K.element_size(), 2 * B * n ** 3 / 3)
+        bound_ms, bound_by = _bound(name, (_factor_elements(B, n) + n) * K.element_size(),
+                                    2 * B * n ** 3 / 3)
         print(f"[K3 {name}] B={B} n={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms * 1e3:.1f} us ({bound_by}); no library call computes "
               f"L with K = L S L' (library_ms null); {smi}")
@@ -450,6 +458,7 @@ def main() -> int:
         print(f"[K1 {name}] {what} B={K.shape[0]} n={n}: |L-L_ref| {err_L:.3e} "
               f"|Linv-Linv_ref| {err_Li:.3e} |L Linv - I| {err_I:.3e}")
         if not (err_L <= tol * max(1.0, L_ref.abs().max().item())
+                and err_Li <= tol * Linv_ref.abs().max().item()
                 and err_I <= 50 * tol):
             raise AssertionError(f"K1 {name} {what} B={K.shape[0]} n={n} disagrees with "
                                  f"its plain version")
@@ -505,7 +514,7 @@ def main() -> int:
             return torch.linalg.solve_triangular(Lc, eye, upper=False)
 
         library_ms = _time_ms(torch, library)
-        bound_ms, bound_by = _bound(name, 3 * MAIN_B * MAIN_N * MAIN_N * K.element_size(),
+        bound_ms, bound_by = _bound(name, _factor_elements(MAIN_B, MAIN_N) * K.element_size(),
                                     2 * MAIN_B * MAIN_N ** 3 / 3)
         print(f"[K1 {name}] B={MAIN_B} n={MAIN_N}: resident kernel {ms:.4f} ms, streamed "
               f"kernel {streamed_ms:.4f} ms, plain {plain_ms:.4f} ms, library "

@@ -50,14 +50,24 @@
 // use is 240 in float32 and 169 in float64.  Blocks have 256 threads;
 // __launch_bounds__ asks for as many blocks per SM as the shared memory
 // of the instance's largest n allows, up to 3 in float32 and 2 in float64
-// (more would spill registers).
+// (more would spill registers).  The kernel is instantiated for 1, 2 and 4
+// column chunks and the type's largest count (8 in float32, 6 in float64),
+// and n takes the first that covers ceil(n / 32); phase C picks its
+// register tile's chunk count at run time within the instance.  n = 128
+// runs the same 4-chunk instance as with one instance per count, which
+// built in twice the time.  (At n = 128, one instance per run of counts
+// sharing a min_blocks was 3% slower in float64, which it puts on the
+// 6-chunk instance; a phase C over all of the instance's chunks was
+// 10-30% slower.)
 //
 // Load and store: K's lower triangle is read once with 16-byte vector
 // loads (float4 / double2), four rows in flight per lane, when rows are
-// 16-byte aligned, else with scalar coalesced loads; its strict upper
-// triangle is never read.  L and Linv are each written once, row by row,
-// with neighbouring lanes on neighbouring addresses, zeros of the upper
-// triangles included.
+// 16-byte aligned, else with scalar coalesced loads.  A row's last vector
+// also brings up to 16 / sizeof(T) - 1 elements of K's strict upper
+// triangle into M's upper part, where phase B or the diagonal block's
+// factor overwrites them before they are read; the scalar path reads none.
+// L and Linv are each written once, row by row, with neighbouring lanes
+// on neighbouring addresses, zeros of the upper triangles included.
 //
 // Rounding: the pivots use rsqrt (rsqrtf is within 2 ulp in float32) and
 // the blocked updates sum in another order than the streamed kernel and
@@ -69,9 +79,10 @@
 //
 // Bound on an H100 SXM (data sheet: 3.35 TB/s HBM3; 67 TFLOP/s in f32
 // outside the tensor cores and 67 TFLOP/s in f64 on them): at B = 1024,
-// n = 128 the kernel must read K once and write L and Linv once, 201 MB in
-// float32 (60 us) or 403 MB in float64 (120 us), against about 2n^3/3
-// flops per matrix (21 us): bound by bytes.  What sets its pace instead is
+// n = 128 the kernel must read K's lower triangle once and write L and
+// Linv once, n(n+1)/2 + 2n^2 elements per matrix: 168 MB in float32
+// (50 us) or 336 MB in float64 (100 us), against about 2n^3/3 flops per
+// matrix (21 us): bound by bytes.  What sets its pace instead is
 // the latency of each block's chain of 16 panels (two barriers each) with
 // at most 3 blocks per SM to overlap them (PERF.md).
 
@@ -120,8 +131,9 @@ constexpr int min_blocks(int n, int elem) {
 __device__ __forceinline__ float rsqrt_of(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double rsqrt_of(double x) { return rsqrt(x); }
 
-// Copy K's lower triangle into M, one warp per row; the strict upper
-// triangle of K is never read.
+// Copy K's lower triangle into M, one warp per row.  On the vector path a
+// row's last vector also copies up to kW - 1 cells right of the diagonal;
+// M's upper part is overwritten before it is read (see the note above).
 template <typename T>
 __device__ __forceinline__ void load_lower(const T* __restrict__ A, T* M, int n, int P) {
   using V = typename Vec16<T>::type;
@@ -345,7 +357,8 @@ chol_inv_resident_kernel(const T* __restrict__ K, T* __restrict__ L_out,
 
     // C: rows i >= j1.  Warp 0 takes the next panel's rows and then
     // factors its diagonal block; the other warps take the rest, kRows rows
-    // at a time.
+    // at a time.  (One loop for both, with per-warp bounds, was 2-3% slower
+    // in float32 at n = 128.)
     if (warp == 0) {
       const int next = min(kNb, n - j1);
       for (int g = j1; g < j1 + next; g += kRows) {
@@ -376,12 +389,16 @@ cudaError_t launch_chunks(const T* K, T* L, T* Linv, int B, int n, cudaStream_t 
   return cudaGetLastError();
 }
 
-// launch_chunks for kc = ceil(n / 32) column chunks, kc a run-time value
-// mapped to a compile-time one up to what the type's largest n needs
-template <typename T, int KC>
-cudaError_t launch_upto(const T* K, T* L, T* Linv, int B, int n, cudaStream_t stream, int kc) {
-  if constexpr (KC < (max_resident_n(sizeof(T)) + 31) / 32) {
-    if (kc != KC) return launch_upto<T, KC + 1>(K, L, Linv, B, n, stream, kc);
+// launch_chunks on the instance for ceil(n / 32) column chunks rounded up
+// to a power of two, or to the type's largest count
+template <typename T, int KC = 1>
+cudaError_t launch_instance(const T* K, T* L, T* Linv, int B, int n, cudaStream_t stream) {
+  constexpr int kMaxChunks = (max_resident_n(sizeof(T)) + 31) / 32;
+  if constexpr (KC < kMaxChunks) {
+    if ((n + 31) / 32 > KC) {
+      return launch_instance<T, (2 * KC < kMaxChunks ? 2 * KC : kMaxChunks)>(K, L, Linv, B, n,
+                                                                           stream);
+    }
   }
   return launch_chunks<T, KC>(K, L, Linv, B, n, stream);
 }
@@ -392,8 +409,7 @@ int launch(const T* K, T* L, T* Linv, int B, int n, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return 0;
-  return static_cast<int>(launch_upto<T, 1>(K, L, Linv, B, n, static_cast<cudaStream_t>(stream),
-                                            (n + 31) / 32));
+  return static_cast<int>(launch_instance<T>(K, L, Linv, B, n, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace

@@ -5,6 +5,9 @@ non-finite contract on indefinite or wrong-sign input, the inverse solves,
 and the wrappers' argument checks.  The CUDA kernels themselves are held
 against the plain versions on the card by chip_smoke.py."""
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -119,6 +122,22 @@ def test_resident_limit_fills_the_block(dtype):
     # share an SM's 228 KB, each block with 1 KB of it reserved by the system
     per_sm = 233_472 // (chol_inv.resident_smem_bytes(128, dtype.itemsize) + 1024)
     assert per_sm == {"float32": 3, "float64": 1}[name]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_resident_layout_matches_the_kernel_source(dtype):
+    """The route's shared-memory formula and per-block limit are the ones
+    the resident kernel's launcher checks n against, so every n routed to
+    it launches."""
+    src = (Path(chol_inv.__file__).parents[1] / "csrc" / "chol_inv_resident.cu").read_text()
+    limit = int(re.search(r"constexpr int kSmemPerBlock = (\d+);", src).group(1))
+    expr = re.search(
+        r"constexpr int resident_smem_bytes\(int n, int elem\) \{ return ([^;]+); \}", src
+    ).group(1)
+    assert limit == chol_inv.SMEM_PER_BLOCK
+    for n in range(1, chol_inv.MAX_KERNEL_N + 2):
+        assert eval(expr, {}, {"n": n, "elem": dtype.itemsize}) == \
+            chol_inv.resident_smem_bytes(n, dtype.itemsize)
 
 
 # ---------------------------------------------------------------------------
