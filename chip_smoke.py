@@ -24,9 +24,14 @@ Phases:
      inverse) against their plain versions, float32 and float64: K2 at
      D in {4, 8, 16, 33, 64, 128} (N = 5, R = 2D + 4) and at the
      multistage fleet's shape N = 12,800, D = 8, R = 20; K3 at
-     Np in {64, 128, 192, 256} with mixed sign patterns and at the
-     dense_ldlt fleet's shape B = 256, Np = 256; wrong-sign poisoning;
-     times and bounds at the fleets' shapes;
+     Np in {64, 128, 168, 169, 192, 224, 225, 239, 240, 256} (B = 5, mixed
+     sign patterns; both sides of each dtype's cluster-size limits) and at
+     the dense_ldlt fleet's shape B = 256, Np = 256, each launch checked to
+     take the route and cluster size ``kernel_route`` and ``cluster_size``
+     name, and the streamed comparator at the fleet's shape; wrong-sign
+     poisoning on a one-block and a clustered shape; times and bounds at
+     the fleets' shapes (K3: the resident kernel at B = 256 and B = 64,
+     the streamed kernel, the blocked route and the plain version);
   3. main path: 1024 problems dense_strongly_convex_qp(128, 64, 64,
      seed=1000+i) (the benchmarks/make_batch.py set), cold with
      mixed precision and one warm re-solve round, with K1 launch counts
@@ -39,7 +44,8 @@ Phases:
      busy share);
   6. dense_ldlt fleet: the first 256 problems of phase 3 through the full
      3-block KKT backend (K3), mixed cold, one warm round and a float64
-     cold solve of 64, plus a float64 dense_lu batch of 64;
+     cold solve of 64, plus a float64 dense_lu batch of 64, with K3 launch
+     counts per dtype, route (all resident) and cluster size;
   7. multistage fleet: 256 problems random_multistage_qp(T=100, D=8, Da=4,
      ra=4, rg=4, seed=4+i) (cyclic reduction, 7 levels of K2), mixed cold,
      one warm round and a float64 cold solve of 64; then 8 problems at
@@ -79,7 +85,10 @@ LDLT_B = 256
 # config 4's horizon): n = 804, p = 400, m = 400
 MS_B, MS_T, MS_D, MS_DA, MS_RA, MS_RG = 256, 100, 8, 4, 4, 4
 K2_SHAPES = [(5, 4), (5, 8), (5, 16), (5, 33), (5, 64), (5, 128), (MS_B * MS_T // 2, MS_D)]
-K3_SHAPES = [(5, 64), (5, 128), (5, 192), (5, 256), (LDLT_B, 256)]
+K3_SHAPES = [(5, 64), (5, 128), (5, 168), (5, 169), (5, 192), (5, 224), (5, 225), (5, 239),
+             (5, 240), (5, 256), (LDLT_B, 256)]
+# the float64 dense_ldlt batch
+LDLT_B64 = 64
 OPT_TOL = 1e-6
 # x of a mixed-precision solve on the CPU vs the card: the float32 phase
 # takes different (equally optimal) trajectories on the two devices; on
@@ -179,7 +188,8 @@ def _reset_counts() -> None:
     from piqp_tpu_torch.ops import chol_inv, signed_chol_inv
 
     for counts in (chol_inv.launches_by_dtype, chol_inv.launches_by_route,
-                   chol_inv.apply_launches_by_dtype, signed_chol_inv.launches_by_dtype):
+                   chol_inv.apply_launches_by_dtype, signed_chol_inv.launches_by_dtype,
+                   signed_chol_inv.launches_by_route, signed_chol_inv.launches_by_cluster):
         for k in counts:
             counts[k] = 0
 
@@ -291,55 +301,110 @@ def _check_k2(torch, smi) -> list:
 
 
 def _check_k3(torch, smi) -> list:
-    """K3 against its plain version on the card, times at the fleet's shape."""
+    """K3 against its plain version on the card on both kernels, times at
+    the fleet's shape."""
+    from piqp_tpu_torch.ops import _build, ldlt
     from piqp_tpu_torch.ops import signed_chol_inv as sci
 
+    def routed(K, signs):
+        """signed_cholesky_with_inverse, checked to launch the resident
+        kernel with the cluster size the route names."""
+        n = K.shape[-1]
+        cluster = sci.cluster_size(n, K.dtype)
+        if sci.kernel_route(n, K.dtype) != "resident":
+            raise AssertionError(f"K3 n={n} {K.dtype} is not routed to the resident kernel")
+        before = (dict(sci.launches_by_route), dict(sci.launches_by_cluster))
+        L, Linv = sci.signed_cholesky_with_inverse(K, signs)
+        grown = ({k: sci.launches_by_route[k] - before[0][k] for k in before[0]},
+                 {k: sci.launches_by_cluster[k] - before[1][k] for k in before[1]})
+        if grown != ({k: int(k == "resident") for k in before[0]},
+                     {k: int(k == cluster) for k in before[1]}):
+            raise AssertionError(f"K3 n={n} {K.dtype}: cluster {cluster}, launches {grown}")
+        return cluster, L, Linv
+
+    def check(name, K, signs, L, Linv, what) -> float:
+        """L and Linv against the plain version; returns the worst error."""
+        tol = K1_TOL[name]
+        B, n = K.shape[0], K.shape[-1]
+        torch.cuda.synchronize()
+        L_ref, Linv_ref = sci.signed_chol_inv_reference(K, signs)
+        eye = torch.eye(n, dtype=K.dtype, device="cuda")
+        err_L = (L - L_ref).abs().max().item()
+        err_Li = (Linv - Linv_ref).abs().max().item()
+        err_I = (L @ Linv - eye).abs().max().item()
+        err_K = ((L * signs) @ L.mT - K).abs().max().item()
+        print(f"[K3 {name}] {what} B={B} n={n} ({int((signs > 0).sum())} positive): "
+              f"|L-L_ref| {err_L:.3e} |Linv-Linv_ref| {err_Li:.3e} |L Linv - I| {err_I:.3e} "
+              f"|L S L' - K| {err_K:.3e}")
+        if not (err_L <= tol * max(1.0, L_ref.abs().max().item())
+                and err_Li <= tol * Linv_ref.abs().max().item()
+                and err_I <= 50 * tol
+                and err_K <= 50 * tol * max(1.0, K.abs().max().item())):
+            raise AssertionError(f"K3 {name} {what} B={B} n={n} disagrees with its plain version")
+        if bool(torch.triu(L, 1).any()) or bool(torch.triu(Linv, 1).any()):
+            raise AssertionError(f"K3 {name} {what} n={n}: nonzero upper triangle")
+        return max(err_L, err_Li)
+
+    lib = _build.library()
     entries = []
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).removeprefix("torch.")
-        tol = K1_TOL[name]
+        # the kernel source's cluster size is the route's, for every n
+        for n in range(1, sci.MAX_KERNEL_N + 1):
+            if lib.piqp_signed_chol_inv_cluster_size(n, dtype.itemsize) != sci.cluster_size(n, dtype):
+                raise AssertionError(f"K3 {name} n={n}: the kernel's cluster size differs "
+                                     f"from the route's")
         worst = 0.0
         for B, n in K3_SHAPES:
             K, signs = _quasidef_batch(torch, B, n, dtype, seed=n)
-            L, Linv = sci.signed_cholesky_with_inverse(K, signs)
-            torch.cuda.synchronize()
-            L_ref, Linv_ref = sci.signed_chol_inv_reference(K, signs)
-            eye = torch.eye(n, dtype=dtype, device="cuda")
-            err_L = (L - L_ref).abs().max().item()
-            err_I = (L @ Linv - eye).abs().max().item()
-            err_K = ((L * signs) @ L.mT - K).abs().max().item()
-            print(f"[K3 {name}] B={B} n={n} ({int((signs > 0).sum())} positive): "
-                  f"|L-L_ref| {err_L:.3e} |L Linv - I| {err_I:.3e} |L S L' - K| {err_K:.3e}")
-            if not (err_L <= tol * max(1.0, L_ref.abs().max().item())
-                    and err_I <= 50 * tol
-                    and err_K <= 50 * tol * max(1.0, K.abs().max().item())):
-                raise AssertionError(f"K3 {name} B={B} n={n} disagrees with its plain version")
-            worst = max(worst, err_L)
-        # a pivot of the wrong sign gives non-finite output for its problem only
-        K, signs = _quasidef_batch(torch, 4, 40, dtype, seed=1)
-        j = int(torch.nonzero(signs > 0)[0])
-        K[2, j, j] = -1e3
-        L, Linv = sci.signed_cholesky_with_inverse(K, signs)
-        fin = (torch.isfinite(L).flatten(1).all(1) & torch.isfinite(Linv).flatten(1).all(1))
-        if fin.tolist() != [True, True, False, True]:
-            raise AssertionError(f"K3 {name}: wrong-sign pivot gave finite flags {fin.tolist()}")
+            cluster, L, Linv = routed(K, signs)
+            worst = max(worst, check(name, K, signs, L, Linv, f"resident c={cluster}"))
+        # a pivot of the wrong sign gives non-finite output for its problem
+        # only, on a one-block and on a clustered shape
+        for n in (40, 256):
+            K, signs = _quasidef_batch(torch, 4, n, dtype, seed=1)
+            j = int(torch.nonzero(signs > 0)[n // 3])
+            K[2, j, j] = -1e3
+            cluster, L, Linv = routed(K, signs)
+            fin = (torch.isfinite(L).flatten(1).all(1) & torch.isfinite(Linv).flatten(1).all(1))
+            print(f"[K3 {name}] resident c={cluster} n={n}: one wrong-sign pivot (row {j}) in "
+                  f"problem 2 of 4, finite flags {fin.tolist()}")
+            if fin.tolist() != [True, True, False, True]:
+                raise AssertionError(f"K3 {name} n={n}: wrong-sign pivot gave finite flags "
+                                     f"{fin.tolist()}")
 
+        # the fleet's shape: the resident kernel, the streamed one through
+        # its private launcher, the blocked route and the plain version
         B, n = K3_SHAPES[-1]
         K, signs = _quasidef_batch(torch, B, n, dtype, seed=7)
+        cluster = sci.cluster_size(n, dtype)
+        L, Linv = sci._launch(K, signs, "streamed")
+        worst_streamed = check(name, K, signs, L, Linv, "streamed")
         ms = _time_ms(torch, lambda: sci.signed_cholesky_with_inverse(K, signs))
+        streamed_ms = _time_ms(torch, lambda: sci._launch(K, signs, "streamed"), count=5)
+        blocked_ms = _time_ms(torch, lambda: ldlt.blocked_inverse(K, signs), count=3, windows=1)
         plain_ms = _time_ms(torch, lambda: sci.signed_chol_inv_reference(K, signs),
                             count=3, windows=1)
+        K64, signs64 = K[:LDLT_B64].contiguous(), signs
+        ms64 = _time_ms(torch, lambda: sci.signed_cholesky_with_inverse(K64, signs64))
         bound_ms, bound_by = _bound(name, (_factor_elements(B, n) + n) * K.element_size(),
                                     2 * B * n ** 3 / 3)
-        print(f"[K3 {name}] B={B} n={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms * 1e3:.1f} us ({bound_by}); no library call computes "
-              f"L with K = L S L' (library_ms null); {smi}")
+        bound64_ms, _ = _bound(name, (_factor_elements(LDLT_B64, n) + n) * K.element_size(),
+                               2 * LDLT_B64 * n ** 3 / 3)
+        print(f"[K3 {name}] B={B} n={n}: resident kernel (cluster {cluster}) {ms:.4f} ms, "
+              f"streamed kernel {streamed_ms:.4f} ms, blocked route {blocked_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.1f} us ({bound_by}); streamed/resident "
+              f"{streamed_ms / ms:.2f}x, blocked/resident {blocked_ms / ms:.2f}x; no single "
+              f"library call computes L with K = L S L' (library_ms null); {smi}")
+        print(f"[K3 {name}] B={LDLT_B64} n={n}: resident kernel {ms64:.4f} ms, bound "
+              f"{bound64_ms * 1e3:.1f} us; {smi}")
         entries.append(dict(
-            name=f"signed_chol_inv_{name}", route="cuda",
-            source="piqp_tpu_torch/csrc/signed_chol_inv.cu",
+            name=f"signed_chol_inv_{name}", route="cuda", kernel_route="resident",
+            cluster=cluster, source="piqp_tpu_torch/csrc/signed_chol_inv_resident.cu",
             replaces="piqp_tpu/ops/pallas_chol.py:381",
-            launches=None, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+            launches=None, max_abs_err=max(worst, worst_streamed), ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            streamed_ms=streamed_ms, blocked_ms=blocked_ms, ms_b64=ms64,
         ))
     return entries
 
@@ -652,6 +717,11 @@ def main() -> int:
     k3_launches = dict(signed_chol_inv.launches_by_dtype)
     if not (k3_launches["float32"] > 0 and k3_launches["float64"] > 0):
         raise AssertionError(f"dense_ldlt fleet: K3 launches per dtype {k3_launches}")
+    k3_routes = dict(signed_chol_inv.launches_by_route)
+    k3_clusters = {c: k for c, k in signed_chol_inv.launches_by_cluster.items() if k}
+    if k3_routes != {"resident": sum(k3_launches.values()), "streamed": 0}:
+        raise AssertionError(f"dense_ldlt fleet K3 launches by route {k3_routes}: all must "
+                             f"be resident")
     for label, res, secs, probs in (("cold", cold6, cold6_s, lprobs),
                                     ("warm", warm6, warm6_s, lmoved)):
         viol = _check_round(probs, res, f"dense_ldlt {label}")
@@ -659,14 +729,18 @@ def main() -> int:
         print(f"[ldlt {label}] {LDLT_B}/{LDLT_B} SOLVED (n+p+m = 256), "
               f"{LDLT_B / secs:.1f} solves/s ({secs:.3f} s), iterations median "
               f"{np.median(it):.1f} max {it.max()}, worst KKT violation {viol:.2e}; {smi}")
-    print(f"[ldlt] K3 launches in the mixed cold + warm rounds {k3_launches}")
+    print(f"[ldlt] K3 launches in the mixed cold + warm rounds: by dtype {k3_launches}, "
+          f"by route {k3_routes}, by cluster size {k3_clusters}")
     f64_ldlt = Settings(kkt_solver=KKTBackend.dense_ldlt)
     before = signed_chol_inv.launches_by_dtype["float64"]
-    res6_64, secs = _timed(torch, lambda: solve_batch(prepare_batch(lprobs[:64]), f64_ldlt))
-    viol = _check_round(lprobs[:64], res6_64, "dense_ldlt float64")
+    res6_64, secs = _timed(torch, lambda: solve_batch(prepare_batch(lprobs[:LDLT_B64]),
+                                                      f64_ldlt))
+    viol = _check_round(lprobs[:LDLT_B64], res6_64, "dense_ldlt float64")
     if signed_chol_inv.launches_by_dtype["float64"] <= before:
         raise AssertionError("dense_ldlt float64 batch did not launch K3")
-    print(f"[ldlt f64] B=64 all SOLVED in {secs:.3f} s, iterations max "
+    if signed_chol_inv.launches_by_route["streamed"]:
+        raise AssertionError("dense_ldlt float64 batch launched the streamed K3")
+    print(f"[ldlt f64] B={LDLT_B64} all SOLVED in {secs:.3f} s, iterations max "
           f"{int(res6_64.info.iter.max())}, worst KKT {viol:.2e}")
     f64_lu = Settings(kkt_solver=KKTBackend.dense_lu)
     res_lu, secs = _timed(torch, lambda: solve_batch(prepare_batch(lprobs[:64]), f64_lu))
@@ -780,7 +854,7 @@ def main() -> int:
             index(cold7, slice(0, 4)), mixed=True)
     _profile_round(torch, "ldlt warm",
                    lambda: solve_batch(data6w, s_ldlt, warm=warm6_pt), warm6_s, smi,
-                   ("signed_chol_inv_kernel",))
+                   ("signed_chol_inv_resident_kernel",))
     _profile_round(torch, "ms warm",
                    lambda: solve_batch(data7w, s_ms, warm=warm7_pt), warm7_s, smi,
                    ("chol_inv_apply_kernel",))

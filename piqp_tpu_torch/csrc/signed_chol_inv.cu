@@ -1,6 +1,9 @@
-// Batched signed Cholesky with fused triangular inverse (K3).
-//
-// Replaces the TPU kernel piqp_tpu/ops/pallas_chol.py::_signed_chol_inv_kernel.
+// Batched signed Cholesky with fused triangular inverse (K3), streamed
+// through device memory: the first port of the TPU kernel
+// piqp_tpu/ops/pallas_chol.py::_signed_chol_inv_kernel.  The route now takes
+// the cluster-resident kernel of signed_chol_inv_resident.cu for every
+// n <= 256; this one stays as a hand-written comparator, reached only
+// through ops/signed_chol_inv.py's private _launch(K, signs, "streamed").
 // For each quasi-definite matrix K of a (B, n, n) batch and one sign vector
 // S = diag(signs), signs in {+1, -1} shared by the batch, it computes the
 // lower factor L with K = L S L^T (diag(L) = sqrt|pivot|, strict upper
@@ -86,14 +89,14 @@ int launch(const T* K, const T* signs, T* L, T* Linv, int B, int n,
 // (B, n, n) device buffers, signs a contiguous (n,) device buffer of the
 // same type; the launch goes on `stream` and does not synchronise.
 // Returns the cudaError_t of the launch, 0 on success.
-extern "C" int piqp_signed_chol_inv_f32(const float* K, const float* signs,
-                                        float* L, float* Linv, int B, int n,
-                                        void* stream) {
+extern "C" int piqp_signed_chol_inv_streamed_f32(const float* K, const float* signs,
+                                                 float* L, float* Linv, int B, int n,
+                                                 void* stream) {
   return launch<float>(K, signs, L, Linv, B, n, stream);
 }
 
-extern "C" int piqp_signed_chol_inv_f64(const double* K, const double* signs,
-                                        double* L, double* Linv, int B, int n,
-                                        void* stream) {
+extern "C" int piqp_signed_chol_inv_streamed_f64(const double* K, const double* signs,
+                                                 double* L, double* Linv, int B, int n,
+                                                 void* stream) {
   return launch<double>(K, signs, L, Linv, B, n, stream);
 }

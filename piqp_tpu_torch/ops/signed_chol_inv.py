@@ -8,10 +8,21 @@ K = L S L^T (lower, diag(L) = sqrt|pivot|) and Linv = L^-1; a solve is
 then two matrix products and a sign flip (``signed_inv_solve``).  It is
 the explicit-inverse factorization of the ``dense_ldlt`` backend.
 
-- On a CUDA tensor with n <= 256 it launches the hand-written kernel
-  ``csrc/signed_chol_inv.cu``.  Above n = 256 it takes the blocked route
-  of ``ops/ldlt.py`` with a block forward substitution for the full
-  inverse, as the JAX package does outside its kernel (``_signed_inv_xla``).
+- On a CUDA tensor, ``kernel_route(n, dtype)`` picks the route by shape:
+  - ``"resident"`` for every n <= ``MAX_KERNEL_N`` (256): the hand-written
+    kernel ``csrc/signed_chol_inv_resident.cu`` (built at first use by
+    ``ops/_build.py``), with the matrix resident in the shared memory of a
+    cluster of ``cluster_size(n, dtype)`` thread blocks: 1 up to n = 239
+    in float32 and n = 168 in float64, then 2, and 3 in float64 above
+    n = 224;
+  - ``"blocked"`` above n = 256: ``ops/ldlt.blocked_inverse``, library
+    products in a loop over column blocks with a block forward
+    substitution for the full inverse, as the JAX package does outside its
+    kernel (``_signed_inv_xla``).
+  The first kernel, ``csrc/signed_chol_inv.cu`` (workspace in device
+  memory), stays as a comparator, reached only through ``_launch(K, signs,
+  "streamed")``.  A launch that fails raises; no route stands in for
+  another.
 - On a CPU tensor it runs ``signed_chol_inv_reference``, the kernel's
   plain PyTorch version: the same column recurrence, batched over B.
 
@@ -27,10 +38,45 @@ from . import ldlt
 
 MAX_KERNEL_N = 256
 _DTYPES = (torch.float32, torch.float64)
+# dynamic shared memory one H100 thread block may opt into (227 KB)
+SMEM_PER_BLOCK = 232_448
+# rows of a panel, the unit of rows dealt to a cluster's blocks
+PANEL_ROWS = 8
+MAX_CLUSTER = 4
 
-# Kernel launches made by ``signed_cholesky_with_inverse`` (never by the
-# plain version or the blocked route), per dtype.
+
+def resident_smem_bytes(n: int, itemsize: int, cluster: int) -> int:
+    """Shared memory of one block of the resident kernel with ``cluster``
+    blocks per matrix: its rows of the n x (n | 1) work square (panels of 8
+    rows dealt round-robin), an 8-row strip when the cluster has more than
+    one block, L's diagonal and the signs."""
+    panels = ((n + PANEL_ROWS - 1) // PANEL_ROWS + cluster - 1) // cluster + (cluster > 1)
+    return (panels * PANEL_ROWS * (n | 1) + 2 * n) * itemsize
+
+
+def cluster_size(n: int, dtype: torch.dtype) -> int:
+    """Blocks per matrix of the resident kernel: the smallest cluster whose
+    blocks each hold their share of the matrix."""
+    c = 1
+    while c < MAX_CLUSTER and resident_smem_bytes(n, dtype.itemsize, c) > SMEM_PER_BLOCK:
+        c += 1
+    return c
+
+
+# Kernel launches made by ``signed_cholesky_with_inverse`` and ``_launch``
+# (never by the plain version or the blocked route), per dtype, per route
+# and, on the resident route, per cluster size.
 launches_by_dtype = {"float32": 0, "float64": 0}
+launches_by_route = {"resident": 0, "streamed": 0}
+launches_by_cluster = {c: 0 for c in range(1, MAX_CLUSTER + 1)}
+
+
+def kernel_route(n: int, dtype: torch.dtype) -> str:
+    """Where a CUDA batch of n x n matrices of ``dtype`` goes: "resident"
+    (with ``cluster_size(n, dtype)`` blocks per matrix) or "blocked"."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"signed_cholesky_with_inverse takes float32 or float64, got {dtype}")
+    return "resident" if n <= MAX_KERNEL_N else "blocked"
 
 
 def _check(K: torch.Tensor, signs: torch.Tensor) -> None:
@@ -72,7 +118,10 @@ def signed_chol_inv_reference(K: torch.Tensor, signs: torch.Tensor):
     return torch.tril(W), Linv
 
 
-def _launch(K: torch.Tensor, signs: torch.Tensor):
+def _launch(K: torch.Tensor, signs: torch.Tensor, route: str, cluster: int | None = None):
+    """Launch the kernel of ``route`` ("resident" or "streamed") on a CUDA
+    batch; the resident kernel with ``cluster`` blocks per matrix, by
+    default ``cluster_size(n, dtype)``."""
     from ._build import library
 
     if not K.is_contiguous():
@@ -81,15 +130,21 @@ def _launch(K: torch.Tensor, signs: torch.Tensor):
     s = signs.to(K.dtype).contiguous()
     L = torch.empty_like(K)
     Linv = torch.empty_like(K)
-    lib = library()
-    fn = (lib.piqp_signed_chol_inv_f32 if K.dtype == torch.float32
-          else lib.piqp_signed_chol_inv_f64)
+    suffix = "f32" if K.dtype == torch.float32 else "f64"
+    fn = getattr(library(), f"piqp_signed_chol_inv_{route}_{suffix}")
+    args = [K.data_ptr(), s.data_ptr(), L.data_ptr(), Linv.data_ptr(), B, n]
+    if route == "resident":
+        cluster = cluster_size(n, K.dtype) if cluster is None else cluster
+        args.append(cluster)
     with torch.cuda.device(K.device):
-        stream = torch.cuda.current_stream(K.device).cuda_stream
-        rc = fn(K.data_ptr(), s.data_ptr(), L.data_ptr(), Linv.data_ptr(), B, n, stream)
+        args.append(torch.cuda.current_stream(K.device).cuda_stream)
+        rc = fn(*args)
     if rc != 0:
-        raise RuntimeError(f"signed_chol_inv kernel launch failed with cudaError_t {rc}")
+        raise RuntimeError(f"signed_chol_inv {route} kernel launch failed with cudaError_t {rc}")
     launches_by_dtype[str(K.dtype).removeprefix("torch.")] += 1
+    launches_by_route[route] += 1
+    if route == "resident":
+        launches_by_cluster[cluster] += 1
     return L, Linv
 
 
@@ -97,17 +152,17 @@ def signed_cholesky_with_inverse(K: torch.Tensor, signs: torch.Tensor):
     """(L, Linv) with K = L diag(signs) L^T for a (B, n, n) batch and one
     (n,) sign vector, float32 or float64.
 
-    CUDA tensor: the hand-written kernel (n <= 256) or the blocked route
-    (n > 256, n a multiple of ``ldlt.DEFAULT_BLOCK``).  CPU tensor: the
-    plain version.  Any other device raises."""
+    CUDA tensor: the resident kernel (n <= 256) or the blocked route (n >
+    256, n a multiple of ``ldlt.DEFAULT_BLOCK``), as ``kernel_route`` says.
+    CPU tensor: the plain version.  Any other device raises."""
     _check(K, signs)
     if K.device.type == "cpu":
         return signed_chol_inv_reference(K, signs)
     if K.device.type != "cuda" or signs.device != K.device:
         raise ValueError(f"signed_cholesky_with_inverse runs on cuda or cpu, not {K.device}")
-    if K.shape[-1] > MAX_KERNEL_N:
+    if kernel_route(K.shape[-1], K.dtype) == "blocked":
         return ldlt.blocked_inverse(K, signs.to(K.dtype))
-    return _launch(K, signs)
+    return _launch(K, signs, "resident")
 
 
 def signed_inv_solve(Linv: torch.Tensor, signs: torch.Tensor, v: torch.Tensor):

@@ -207,7 +207,7 @@ def _quasidef_batch(B, n, npos, seed):
     return np.ascontiguousarray(K[:, perm][:, :, perm]), s[perm]
 
 
-@pytest.mark.parametrize("n,npos", [(24, 10), (64, 40)])
+@pytest.mark.parametrize("n,npos", [(24, 10), (64, 40), (128, 64)])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_signed_reference_matches_jax_kernel(n, npos, dtype):
     K, s = _quasidef_batch(4, n, npos, seed=n)
@@ -269,10 +269,60 @@ def test_signed_wrapper_rejects_bad_input(K, s):
 
 
 def test_no_k2_k3_launches_on_cpu():
-    before = (dict(chol_inv.apply_launches_by_dtype), dict(signed_chol_inv.launches_by_dtype))
+    counts = (chol_inv.apply_launches_by_dtype, signed_chol_inv.launches_by_dtype,
+              signed_chol_inv.launches_by_route, signed_chol_inv.launches_by_cluster)
+    before = tuple(dict(c) for c in counts)
     for dt in (torch.float32, torch.float64):
-        K = torch.as_tensor(_spd_batch(2, 6, 0), dtype=dt)
-        chol_inv.cholesky_inverse_apply(K, torch.ones((2, 6, 4), dtype=dt))
-        signed_chol_inv.signed_cholesky_with_inverse(K, torch.ones(6, dtype=dt))
-    after = (chol_inv.apply_launches_by_dtype, signed_chol_inv.launches_by_dtype)
-    assert after == before
+        for n in (6, 240):  # a one-block and a clustered resident shape
+            K = torch.as_tensor(_spd_batch(2, n, 0), dtype=dt)
+            chol_inv.cholesky_inverse_apply(K, torch.ones((2, n, 4), dtype=dt))
+            signed_chol_inv.signed_cholesky_with_inverse(K, torch.ones(n, dtype=dt))
+    assert counts == before
+
+
+@pytest.mark.parametrize(
+    "n,dtype,route,cluster",
+    [
+        (8, torch.float32, "resident", 1),
+        (239, torch.float32, "resident", 1),
+        (240, torch.float32, "resident", 2),
+        (256, torch.float32, "resident", 2),
+        (64, torch.float64, "resident", 1),
+        (168, torch.float64, "resident", 1),
+        (169, torch.float64, "resident", 2),
+        (224, torch.float64, "resident", 2),
+        (225, torch.float64, "resident", 3),
+        (256, torch.float64, "resident", 3),
+        (257, torch.float32, "blocked", None),
+        (257, torch.float64, "blocked", None),
+    ],
+)
+def test_signed_kernel_route(n, dtype, route, cluster):
+    assert signed_chol_inv.kernel_route(n, dtype) == route
+    if cluster is not None:
+        assert signed_chol_inv.cluster_size(n, dtype) == cluster
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_signed_resident_layout_matches_the_kernel_source(dtype):
+    """The route's shared-memory formula, per-block limit and largest
+    cluster are the ones the resident K3 launcher checks a launch against,
+    and the cluster size the route picks is the smallest whose blocks fit."""
+    src = (Path(signed_chol_inv.__file__).parents[1] / "csrc"
+           / "signed_chol_inv_resident.cu").read_text()
+    limit = int(re.search(r"constexpr int kSmemPerBlock = (\d+);", src).group(1))
+    max_cluster = int(re.search(r"constexpr int kMaxCluster = (\d+);", src).group(1))
+    panel = int(re.search(r"constexpr int kNb = (\d+);", src).group(1))
+    expr = re.search(
+        r"constexpr int resident_smem_bytes\(int n, int elem, int c\) \{ return ([^;]+); \}", src
+    ).group(1).replace("/", "//")  # C's integer division
+    assert (limit, max_cluster, panel) == (
+        signed_chol_inv.SMEM_PER_BLOCK, signed_chol_inv.MAX_CLUSTER, signed_chol_inv.PANEL_ROWS)
+    size = dtype.itemsize
+    for n in range(1, signed_chol_inv.MAX_KERNEL_N + 1):
+        for c in range(1, max_cluster + 1):
+            assert eval(expr, {}, {"n": n, "elem": size, "c": c}) == \
+                signed_chol_inv.resident_smem_bytes(n, size, c)
+        c = signed_chol_inv.cluster_size(n, dtype)
+        assert signed_chol_inv.resident_smem_bytes(n, size, c) <= limit
+        assert c == 1 or signed_chol_inv.resident_smem_bytes(n, size, c - 1) > limit
