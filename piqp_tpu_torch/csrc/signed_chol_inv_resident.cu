@@ -14,26 +14,82 @@
 //   v[j] = 1 / d                        (d = sqrt(s_j W[j, j]) = L[j, j])
 //   v[c] = W[c, j] / d    for c > j     (s_j times column j of L)
 //
-// stores it as row j of the work square M and subtracts s_j v[i] v[c] from
-// every later row i over its whole lower part, c <= i, column j counting
-// as 0.  When the loop ends, M's lower triangle holds Linv, its strict
-// upper triangle the unsigned v's (L^T S), and diag holds d.
+// (W the trailing Schur complement, Z the inverse's rows still being
+// eliminated), stores it as row j of the work square M and subtracts
+// s_j v[i] v[c] from every later row i over its whole lower part, c <= i,
+// column j counting as 0.  When the loop ends, M's lower triangle holds
+// Linv, its strict upper triangle the unsigned v's (S L^T), and the
+// n-vector diag holds d; the store pass applies the signs to L.
 //
 // Layout: one n x (n | 1) square would take 264 KB in float32 and 528 KB
 // in float64 at n = 256, more than a block's 227 KB, so the rows are
 // spread over a cluster of c blocks: panels of kNb = 8 rows are dealt to
-// the blocks round-robin (panel q to block q mod c), and each block keeps
-// its whole rows, a strip of kNb rows that receives the current column
-// vector, diag and the signs.  The grid is B * c, one cluster per matrix.
+// the blocks round-robin (panel q to block q mod c, which keeps the
+// shrinking trailing work balanced), and each block keeps its whole rows
+// (lower part and S L^T part), a strip of kNb rows when c > 1, diag and
+// the signs: resident_smem_bytes below.  c is the smallest cluster whose
+// blocks fit (cluster_size): at n = 256, 2 blocks of 139 KB in float32 and
+// 3 of 197 KB in float64, so one block per SM.  The grid is B * c, one
+// cluster per matrix, launched with cudaLaunchKernelEx and a
+// cluster-dimension attribute.  Blocks have 512 threads in float32 and 256
+// in float64 (Tuning): 512 left float64 at the 128-register cap with
+// spills and was 14% slower, 256 made float32 6% slower, and 4-block
+// clusters were twice as slow (PERF.md).
 //
-// This first version steps one column at a time: the owner of row j and
-// the owners of the rows below form v, each writing its entries into every
-// block's copy (distributed shared memory), a cluster barrier, the rank-1
-// update of each block's own rows from its copy, a cluster barrier.
+// The columns go in panels of kNb = 8, the same panels whose rows are
+// dealt out.  Per panel [j0, j1), owned by block o:
+//   A. one warp of o factors the 8 x 8 diagonal block with the signs and
+//      inverts its factor by the same elimination, all in registers, every
+//      lane on the same values: S L_pp^T and Linv_pp go into o's rows,
+//      d into diag.  Cluster barrier.
+//   B. the panel rows' strip V (8 x n): every other block first copies
+//      Linv_pp from o (distributed shared memory) into its strip; then o
+//      forms Linv[panel, x] = Linv_pp Z[panel, x] for x < j0, and every
+//      block forms V[:, x] = Linv_pp W[x, panel]^T for its own rows
+//      x >= j1, one thread per x, each writing its 8 values into every
+//      block's copy of the strip: o's own panel rows, the others' strips.
+//      Cluster barrier.
+//   C. local to each block: the rows below take the signed rank-8 update
+//      from the block's copy, M[i, c] -= sum_r s_r V[r, i] V[r, c] (panel
+//      columns start from 0 and take only the strip rows at or below
+//      them).  A warp owns a tile of kRows = 4 rows by its lanes' columns
+//      (lane, lane + 32, ...), held in registers across the 8 strip rows.
+//      Warp 0 of the next panel's owner updates that panel's rows first
+//      and then runs its phase A (lookahead).  Cluster barrier.
+// So a panel costs two cluster barriers.  The barrier after C also keeps
+// the next panel's strip writes of B from overtaking this panel's reads.
+// (Pushing Linv_pp into a second strip during the lookahead, which saves
+// the copy and a block barrier per panel, and splitting the next panel's
+// rows over two warps each moved the time by less than 1%: not kept.)
 //
-// Load and store: each block reads its rows of K's lower triangle once with
-// 16-byte loads; it writes its rows of Linv, and the 8-column runs of L
-// under its own panels (one 32 / 64-byte run per row of L), zeros included.
+// Load and store: each block reads its rows of K's lower triangle once
+// with 16-byte loads when rows are 16-byte aligned (a row's last vector
+// also brings a few cells of K's upper triangle into M's upper part,
+// which A or B overwrites before it is read), else with scalar coalesced
+// loads.  It writes its rows of Linv, row by row with neighbouring lanes
+// on neighbouring addresses, and the 8-column runs of L under its own
+// panels: L[i, col] for col in the panel, one 32-byte (float32) or 64-byte
+// (float64) run per row of L, with 16-byte stores when n is a multiple of
+// 8.  So no block reads another's rows to store, and the zeros of both
+// upper triangles go out in the same pass.  (Gathering whole rows of L
+// through distributed shared memory before a coalesced store, the other
+// way, would read n (c - 1) / c remote values per row; it was not built.)
+//
+// Rounding: rsqrt pivots and blocked sums differ from the plain version in
+// the last bits; chip_smoke.py holds L and Linv to 5e-5 (float32) and
+// 1e-11 (float64) relative to their largest entries.  float32 stays on
+// FFMA in full precision.  A pivot whose sign disagrees with its entry of
+// S gives rsqrt of a negative number and non-finite output for that
+// problem's cluster only; nothing clamps it.
+//
+// Bound on an H100 SXM (data sheet: 3.35 TB/s HBM3; 67 TFLOP/s in f32
+// outside the tensor cores and 67 TFLOP/s in f64 on them): at the
+// dense_ldlt fleet's B = 256, n = 256 the kernel must read K's lower
+// triangle and the signs once and write L and Linv once, n(n+1)/2 + 2n^2
+// elements per matrix: 168 MB in float32 (50 us) or 336 MB in float64
+// (100 us), against about 2n^3/3 flops per matrix (43 us): bound by bytes.
+// What sets its pace instead is each cluster's chain of 32 panels, two
+// cluster barriers each, with one block per SM (PERF.md).
 
 #include <cstdint>
 
@@ -60,9 +116,21 @@ __device__ __forceinline__ float4 vec16(const float* e) {
 }
 __device__ __forceinline__ double2 vec16(const double* e) { return make_double2(e[0], e[1]); }
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kNb = 8;           // rows of a panel, the unit dealt to the blocks
+// threads of a block and rows of a warp's tile in phase C, per type
+template <typename T>
+struct Tuning;
+template <>
+struct Tuning<float> {
+  static constexpr int kThreads = 512;
+  static constexpr int kRows = 4;
+};
+template <>
+struct Tuning<double> {
+  static constexpr int kThreads = 256;
+  static constexpr int kRows = 4;
+};
+constexpr int kNb = 8;           // panel width: rows dealt to the blocks, columns eliminated
+constexpr int kRStep = 4;        // strip rows whose loads phase C issues together
 constexpr int kMaxN = 256;
 constexpr int kMaxCluster = 4;
 constexpr int kSmemPerBlock = 232448;  // dynamic shared memory a block may opt into
@@ -73,7 +141,7 @@ constexpr int kSmemPerBlock = 232448;  // dynamic shared memory a block may opt 
 constexpr int resident_smem_bytes(int n, int elem, int c) { return ((((n + 7) / 8 + c - 1) / c + (c > 1)) * 8 * (n | 1) + 2 * n) * elem; }
 
 // the smallest cluster whose blocks hold the matrix: 1 up to n = 239 in
-// float32 and n = 168 in float64, then 2, and 3 in float64 above n = 224
+// float32 and n = 168 in float64, then 2, and 3 in float64 from n = 225
 constexpr int cluster_size(int n, int elem) {
   int c = 1;
   while (c < kMaxCluster && resident_smem_bytes(n, elem, c) > kSmemPerBlock) ++c;
@@ -99,6 +167,7 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ A, T* M, int n, 
                                           int b, int c) {
   using V = typename Vec16<T>::type;
   constexpr int kW = 16 / sizeof(T);
+  constexpr int kWarps = Tuning<T>::kThreads / 32;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   if (n % kW == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0) {
@@ -144,6 +213,8 @@ __device__ __forceinline__ void store_factors(const T* M, const T* diag, const T
                                               int P, int rows, int b, int c) {
   using V = typename Vec16<T>::type;
   constexpr int kW = 16 / sizeof(T);
+  constexpr int kThreads = Tuning<T>::kThreads;
+  constexpr int kWarps = kThreads / 32;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -182,11 +253,135 @@ __device__ __forceinline__ void store_factors(const T* M, const T* diag, const T
   }
 }
 
+// Phase A of a panel, run by one warp: factor the panel's nbp x nbp
+// diagonal block D = L_pp S_pp L_pp^T (rows at local row lr0, columns at
+// j0) and invert L_pp, all in registers, by the same carried-identity
+// elimination as the whole matrix; every lane does the same arithmetic on
+// the same values.  S_pp L_pp^T goes into M's upper block as it is formed,
+// d into diag, Linv_pp into M's lower block.  Rows past nbp are padded
+// with the identity and sign +1.
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
+__device__ __forceinline__ void factor_diagonal_block(T* M, T* diag, const T* sgn, int P,
+                                                      int lr0, int j0, int nbp) {
+  const int lane = threadIdx.x & 31;
+  T a[kNb][kNb];
+#pragma unroll
+  for (int i = 0; i < kNb; ++i) {
+#pragma unroll
+    for (int k = 0; k <= i; ++k) {
+      a[i][k] = i < nbp ? M[(lr0 + i) * P + j0 + k] : T(i == k ? 1 : 0);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kNb; ++k) {
+    const T sk = k < nbp ? sgn[j0 + k] : T(1);
+    const T dinv = rsqrt_of(sk * a[k][k]);
+    if (lane == k && k < nbp) diag[j0 + k] = sk * a[k][k] * dinv;
+#pragma unroll
+    for (int c = 0; c < k; ++c) a[k][c] *= dinv;
+    a[k][k] = dinv;
+    T v[kNb];
+#pragma unroll
+    for (int i = k + 1; i < kNb; ++i) {
+      v[i] = a[i][k] * dinv;
+      a[i][k] = T(0);
+      if (lane == i && i < nbp) M[(lr0 + k) * P + j0 + i] = v[i];
+    }
+#pragma unroll
+    for (int i = k + 1; i < kNb; ++i) {
+      const T sv = sk * v[i];
+#pragma unroll
+      for (int c = 0; c <= i; ++c) a[i][c] -= sv * (c < k ? a[k][c] : (c == k ? dinv : v[c]));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kNb; ++i) {
+    if (i == lane && i < nbp) {
+#pragma unroll
+      for (int k = 0; k <= i; ++k) M[(lr0 + i) * P + j0 + k] = a[i][k];
+    }
+  }
+}
+
+// Phase C for kRows rows g.. (local rows lr..) of one warp, over the first
+// KC column chunks: M[i, c] -= sum_r s_r V[r, i] V[r, c] for c <= i, with V
+// the nbp strip rows S (rows past nbp masked out).  Panel columns
+// j0 <= c < j1 start from 0 and take only the rows r with j0 + r >= c,
+// whose V[r, c] is Linv_pp[r, c - j0].
+template <typename T, int KC>
+__device__ __forceinline__ void update_rows(T* M, const T* S, const T* sgn, int P, int n,
+                                            int lr, int g, int j0, int nbp) {
+  constexpr int kRows = Tuning<T>::kRows;
+  const int lane = threadIdx.x & 31;
+  const int j1 = j0 + nbp;
+  T acc[kRows][KC];
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+#pragma unroll
+    for (int k = 0; k < KC; ++k) {
+      const int c = lane + 32 * k;
+      const int i = g + q;
+      acc[q][k] = (i < n && c <= i && (c < j0 || c >= j1)) ? M[(lr + q) * P + c] : T(0);
+    }
+  }
+#pragma unroll 1
+  for (int r0 = 0; r0 < kNb; r0 += kRStep) {
+#pragma unroll
+    for (int r = r0; r < r0 + kRStep; ++r) {
+      const T* srow = S + r * P;
+      const T sr = r < nbp ? sgn[j0 + r] : T(0);
+      T u[kRows], s[KC];
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) u[q] = (r < nbp && g + q < n) ? sr * srow[g + q] : T(0);
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        const int c = lane + 32 * k;
+        s[k] = (r < nbp && c < n && (c <= j0 + r || c >= j1)) ? srow[c] : T(0);
+      }
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) {
+#pragma unroll
+        for (int k = 0; k < KC; ++k) acc[q][k] -= u[q] * s[k];
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+#pragma unroll
+    for (int k = 0; k < KC; ++k) {
+      const int c = lane + 32 * k;
+      const int i = g + q;
+      if (i < n && c <= i) M[(lr + q) * P + c] = acc[q][k];
+    }
+  }
+}
+
+// update_rows over the chunks that reach the tile's last row: kc of them,
+// a run-time value uniform across the warp, mapped to a compile-time KC
+template <typename T, int KC, int kChunks>
+__device__ __forceinline__ void update_rows_upto(T* M, const T* S, const T* sgn, int P, int n,
+                                                 int lr, int g, int j0, int nbp, int kc) {
+  if constexpr (KC < kChunks) {
+    if (kc == KC) {
+      update_rows<T, KC>(M, S, sgn, P, n, lr, g, j0, nbp);
+    } else {
+      update_rows_upto<T, KC + 1, kChunks>(M, S, sgn, P, n, lr, g, j0, nbp, kc);
+    }
+  } else {
+    update_rows<T, kChunks>(M, S, sgn, P, n, lr, g, j0, nbp);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(Tuning<T>::kThreads, 1)
 signed_chol_inv_resident_kernel(const T* __restrict__ K, const T* __restrict__ signs,
                                 T* __restrict__ L_out, T* __restrict__ Linv_out, int n) {
+  constexpr int kThreads = Tuning<T>::kThreads;
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kRows = Tuning<T>::kRows;
+  static_assert(kNb % kRows == 0 && kNb <= 32, "warp 0 takes the next panel's rows whole");
   static_assert(kNb % (16 / sizeof(T)) == 0, "L's runs are whole 16-byte vectors");
+  constexpr int kChunks = (kMaxN + 31) / 32;
   cg::cluster_group cluster = cg::this_cluster();
   const int c = static_cast<int>(cluster.num_blocks());
   const int b = static_cast<int>(cluster.block_rank());
@@ -199,50 +394,101 @@ signed_chol_inv_resident_kernel(const T* __restrict__ K, const T* __restrict__ s
   T* sgn = diag + n;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
-  const int lane = tid & 31;
   const size_t offset = static_cast<size_t>(blockIdx.x / c) * n * n;
 
   for (int x = tid; x < n; x += kThreads) sgn[x] = signs[x];
   load_rows<T>(K + offset, M, n, P, rows, b, c);
+  __syncthreads();
+  if (b == 0 && warp == 0) factor_diagonal_block<T>(M, diag, sgn, P, 0, 0, min(kNb, n));
   cluster.sync();
 
-  for (int j = 0; j < n; ++j) {
-    const int o = owner_of(j, c);
-    const int lj = local_row(j, c);
+  const int panels = (n + kNb - 1) / kNb;
+  for (int p = 0; p < panels; ++p) {
+    const int j0 = p * kNb;
+    const int nbp = min(kNb, n - j0);
+    const int j1 = j0 + nbp;
+    const int o = p % c;
     const bool own = o == b;
-    T* vloc = own ? M + lj * P : strip;
-    const T sj = sgn[j];
-    const T wjj = own ? M[lj * P + j] : *cluster.map_shared_rank(M + lj * P + j, o);
-    const T dinv = rsqrt_of(sj * wjj);
-    // v into every block's copy: row j of the owner, the others' strips
-    auto put = [&](int x, T v) {
-      for (int rb = 0; rb < c; ++rb) {
-        *cluster.map_shared_rank((rb == o ? M + lj * P : strip) + x, rb) = v;
+    T* panel_rows = M + (p / c) * kNb * P;  // the owner's rows of the panel
+    const T* S = own ? panel_rows : strip;
+    // local row of the block's first row below the panel
+    const int first = (p - b + c) / c * kNb;
+
+    // B: the other blocks copy the diagonal block (Linv_pp) from the owner
+    if (!own) {
+      if (tid < kNb * kNb) {
+        const int r = tid / kNb;
+        const int k = tid % kNb;
+        if (k <= r && r < nbp) {
+          strip[r * P + j0 + k] = *cluster.map_shared_rank(panel_rows + r * P + j0 + k, o);
+        }
       }
-    };
-    if (own) {
-      if (tid == 0) diag[j] = sj * wjj * dinv;
-      for (int x = tid; x < j; x += kThreads) put(x, M[lj * P + x] * dinv);
+      __syncthreads();
     }
-    for (int lr = tid; lr < rows; lr += kThreads) {
-      const int i = global_row(lr, b, c);
-      if (i > j && i < n) put(i, M[lr * P + j] * dinv);
+    T* dst[kMaxCluster];
+#pragma unroll
+    for (int rb = 0; rb < kMaxCluster; ++rb) {
+      dst[rb] = rb < c ? cluster.map_shared_rank(rb == o ? panel_rows : strip, rb) : nullptr;
+    }
+    // one thread per x: the owner's columns x < j0, then every block's
+    // rows x >= j1
+    const int lead = own ? j0 : 0;
+    for (int t = tid; t < lead + rows - first; t += kThreads) {
+      int x;
+      T m[kNb];
+      if (t < lead) {
+        x = t;
+#pragma unroll
+        for (int k = 0; k < kNb; ++k) m[k] = k < nbp ? panel_rows[k * P + x] : T(0);
+      } else {
+        const int lr = first + t - lead;
+        x = global_row(lr, b, c);
+        if (x >= n) continue;
+#pragma unroll
+        for (int k = 0; k < kNb; ++k) m[k] = k < nbp ? M[lr * P + j0 + k] : T(0);
+      }
+      T y[kNb];
+#pragma unroll
+      for (int r = 0; r < kNb; ++r) {
+        const T* ipp = S + r * P + j0;
+        y[r] = T(0);
+#pragma unroll
+        for (int k = 0; k <= r; ++k) y[r] += (r < nbp ? ipp[k] : T(0)) * m[k];
+      }
+#pragma unroll
+      for (int rb = 0; rb < kMaxCluster; ++rb) {
+        if (rb < c) {
+#pragma unroll
+          for (int r = 0; r < kNb; ++r) {
+            if (r < nbp) dst[rb][r * P + x] = y[r];
+          }
+        }
+      }
     }
     cluster.sync();
 
-    // rank-1 update of the own rows below j; v[j] = dinv is taken from the
-    // register, since the owner's M[j, j] still holds the pivot that the
-    // other blocks read before the barrier
-    for (int lr = warp; lr < rows; lr += kWarps) {
-      const int i = global_row(lr, b, c);
-      if (i <= j || i >= n) continue;
-      const T ui = sj * vloc[i];
-      T* row = M + lr * P;
-      for (int x = lane; x <= i; x += 32) {
-        row[x] = x == j ? -ui * dinv : row[x] - ui * vloc[x];
+    // C: the block's rows below the panel, kRows at a time.  Warp 0 of the
+    // next panel's owner takes that panel's rows and then factors its
+    // diagonal block; the other warps take the rest.
+    const bool lookahead = j1 < n && (p + 1) % c == b;
+    const int tiles = (rows - first) / kRows;
+    auto update_tile = [&](int t) {
+      const int lr = first + t * kRows;
+      const int g = global_row(lr, b, c);
+      if (g < n) {
+        update_rows_upto<T, 1, kChunks>(M, S, sgn, P, n, lr, g, j0, nbp,
+                                        (min(g + kRows, n) - 1) / 32 + 1);
       }
+    };
+    if (lookahead && warp == 0) {
+      for (int t = 0; t < kNb / kRows; ++t) update_tile(t);
+      __syncwarp();
+      factor_diagonal_block<T>(M, diag, sgn, P, first, j1, min(kNb, n - j1));
+    } else {
+      const int t0 = lookahead ? kNb / kRows + warp - 1 : warp;
+      const int step = lookahead ? kWarps - 1 : kWarps;
+      for (int t = t0; t < tiles; t += step) update_tile(t);
     }
-    if (own && tid == 0) M[lj * P + j] = dinv;
     cluster.sync();
   }
   store_factors<T>(M, diag, sgn, L_out + offset, Linv_out + offset, n, P, rows, b, c);
@@ -262,7 +508,7 @@ int launch(const T* K, const T* signs, T* L, T* Linv, int B, int n, int c, void*
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * c);
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(Tuning<T>::kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];

@@ -13,8 +13,8 @@ the explicit-inverse factorization of the ``dense_ldlt`` backend.
     kernel ``csrc/signed_chol_inv_resident.cu`` (built at first use by
     ``ops/_build.py``), with the matrix resident in the shared memory of a
     cluster of ``cluster_size(n, dtype)`` thread blocks: 1 up to n = 239
-    in float32 and n = 168 in float64, then 2, and 3 in float64 above
-    n = 224;
+    in float32 and n = 168 in float64, then 2, and 3 in float64 from
+    n = 225;
   - ``"blocked"`` above n = 256: ``ops/ldlt.blocked_inverse``, library
     products in a loop over column blocks with a block forward
     substitution for the full inverse, as the JAX package does outside its
