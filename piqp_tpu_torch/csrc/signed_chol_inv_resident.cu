@@ -32,7 +32,7 @@
 // 3 of 197 KB in float64, so one block per SM.  The grid is B * c, one
 // cluster per matrix, launched with cudaLaunchKernelEx and a
 // cluster-dimension attribute.  Blocks have 512 threads in float32 and 256
-// in float64 (Tuning): 512 left float64 at the 128-register cap with
+// in float64 (kThreads): 512 left float64 at the 128-register cap with
 // spills and was 14% slower, 256 made float32 6% slower, and 4-block
 // clusters were twice as slow (PERF.md).
 //
@@ -116,20 +116,11 @@ __device__ __forceinline__ float4 vec16(const float* e) {
 }
 __device__ __forceinline__ double2 vec16(const double* e) { return make_double2(e[0], e[1]); }
 
-// threads of a block and rows of a warp's tile in phase C, per type
+// threads of a block: 512 in float32, 256 in float64 (see the note above)
 template <typename T>
-struct Tuning;
-template <>
-struct Tuning<float> {
-  static constexpr int kThreads = 512;
-  static constexpr int kRows = 4;
-};
-template <>
-struct Tuning<double> {
-  static constexpr int kThreads = 256;
-  static constexpr int kRows = 4;
-};
+constexpr int kThreads = sizeof(T) == 4 ? 512 : 256;
 constexpr int kNb = 8;           // panel width: rows dealt to the blocks, columns eliminated
+constexpr int kRows = 4;         // rows of a warp's tile in phase C
 constexpr int kRStep = 4;        // strip rows whose loads phase C issues together
 constexpr int kMaxN = 256;
 constexpr int kMaxCluster = 4;
@@ -138,7 +129,9 @@ constexpr int kSmemPerBlock = 232448;  // dynamic shared memory a block may opt 
 // Shared memory of one block of a c-block cluster: its rows (the panels
 // dealt to it, ceil(ceil(n / 8) / c) of them), a strip of 8 rows when c > 1,
 // diag and the signs.
-constexpr int resident_smem_bytes(int n, int elem, int c) { return ((((n + 7) / 8 + c - 1) / c + (c > 1)) * 8 * (n | 1) + 2 * n) * elem; }
+constexpr int resident_smem_bytes(int n, int elem, int c) {
+  return ((((n + 7) / 8 + c - 1) / c + (c > 1)) * 8 * (n | 1) + 2 * n) * elem;
+}
 
 // the smallest cluster whose blocks hold the matrix: 1 up to n = 239 in
 // float32 and n = 168 in float64, then 2, and 3 in float64 from n = 225
@@ -167,7 +160,7 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ A, T* M, int n, 
                                           int b, int c) {
   using V = typename Vec16<T>::type;
   constexpr int kW = 16 / sizeof(T);
-  constexpr int kWarps = Tuning<T>::kThreads / 32;
+  constexpr int kWarps = kThreads<T> / 32;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   if (n % kW == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0) {
@@ -213,8 +206,7 @@ __device__ __forceinline__ void store_factors(const T* M, const T* diag, const T
                                               int P, int rows, int b, int c) {
   using V = typename Vec16<T>::type;
   constexpr int kW = 16 / sizeof(T);
-  constexpr int kThreads = Tuning<T>::kThreads;
-  constexpr int kWarps = kThreads / 32;
+  constexpr int kWarps = kThreads<T> / 32;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -229,7 +221,7 @@ __device__ __forceinline__ void store_factors(const T* M, const T* diag, const T
   for (int lq = 0; lq * kNb < rows; ++lq) {
     const int col0 = (lq * c + b) * kNb;
     if (col0 >= n) break;
-    for (int i = tid; i < n; i += kThreads) {
+    for (int i = tid; i < n; i += kThreads<T>) {
       T out[kNb];
 #pragma unroll
       for (int k = 0; k < kNb; ++k) {
@@ -311,7 +303,6 @@ __device__ __forceinline__ void factor_diagonal_block(T* M, T* diag, const T* sg
 template <typename T, int KC>
 __device__ __forceinline__ void update_rows(T* M, const T* S, const T* sgn, int P, int n,
                                             int lr, int g, int j0, int nbp) {
-  constexpr int kRows = Tuning<T>::kRows;
   const int lane = threadIdx.x & 31;
   const int j1 = j0 + nbp;
   T acc[kRows][KC];
@@ -373,12 +364,10 @@ __device__ __forceinline__ void update_rows_upto(T* M, const T* S, const T* sgn,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(Tuning<T>::kThreads, 1)
+__global__ void __launch_bounds__(kThreads<T>, 1)
 signed_chol_inv_resident_kernel(const T* __restrict__ K, const T* __restrict__ signs,
                                 T* __restrict__ L_out, T* __restrict__ Linv_out, int n) {
-  constexpr int kThreads = Tuning<T>::kThreads;
-  constexpr int kWarps = kThreads / 32;
-  constexpr int kRows = Tuning<T>::kRows;
+  constexpr int kWarps = kThreads<T> / 32;
   static_assert(kNb % kRows == 0 && kNb <= 32, "warp 0 takes the next panel's rows whole");
   static_assert(kNb % (16 / sizeof(T)) == 0, "L's runs are whole 16-byte vectors");
   constexpr int kChunks = (kMaxN + 31) / 32;
@@ -396,7 +385,7 @@ signed_chol_inv_resident_kernel(const T* __restrict__ K, const T* __restrict__ s
   const int warp = tid >> 5;
   const size_t offset = static_cast<size_t>(blockIdx.x / c) * n * n;
 
-  for (int x = tid; x < n; x += kThreads) sgn[x] = signs[x];
+  for (int x = tid; x < n; x += kThreads<T>) sgn[x] = signs[x];
   load_rows<T>(K + offset, M, n, P, rows, b, c);
   __syncthreads();
   if (b == 0 && warp == 0) factor_diagonal_block<T>(M, diag, sgn, P, 0, 0, min(kNb, n));
@@ -433,7 +422,7 @@ signed_chol_inv_resident_kernel(const T* __restrict__ K, const T* __restrict__ s
     // one thread per x: the owner's columns x < j0, then every block's
     // rows x >= j1
     const int lead = own ? j0 : 0;
-    for (int t = tid; t < lead + rows - first; t += kThreads) {
+    for (int t = tid; t < lead + rows - first; t += kThreads<T>) {
       int x;
       T m[kNb];
       if (t < lead) {
@@ -508,7 +497,7 @@ int launch(const T* K, const T* signs, T* L, T* Linv, int B, int n, int c, void*
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * c);
-  cfg.blockDim = dim3(Tuning<T>::kThreads);
+  cfg.blockDim = dim3(kThreads<T>);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
@@ -527,11 +516,12 @@ int launch(const T* K, const T* signs, T* L, T* Linv, int B, int n, int c, void*
 
 // Plain C interface (bound with ctypes).  K, L and Linv are contiguous
 // (B, n, n) device buffers, signs a contiguous (n,) device buffer of the
-// same type; `cluster` is the number of blocks per matrix (the route passes
-// piqp_signed_chol_inv_cluster_size's).  The launch goes on `stream` and
-// does not synchronise.  Returns the cudaError_t of the attribute call or
-// of the launch, 0 on success, and cudaErrorInvalidValue for an n or a
-// cluster whose blocks cannot hold the matrix.
+// same type; `cluster` is the number of blocks per matrix (the route
+// passes cluster_size's, mirrored in ops/signed_chol_inv.py).  The launch
+// goes on `stream` and does not synchronise.  Returns the cudaError_t of
+// the attribute call or of the launch, 0 on success, and
+// cudaErrorInvalidValue for an n or a cluster whose blocks cannot hold
+// the matrix.
 extern "C" int piqp_signed_chol_inv_resident_f32(const float* K, const float* signs, float* L,
                                                  float* Linv, int B, int n, int cluster,
                                                  void* stream) {
@@ -542,10 +532,4 @@ extern "C" int piqp_signed_chol_inv_resident_f64(const double* K, const double* 
                                                  double* L, double* Linv, int B, int n,
                                                  int cluster, void* stream) {
   return launch<double>(K, signs, L, Linv, B, n, cluster, stream);
-}
-
-// the cluster size of the formula above for n and an element of `elem`
-// bytes
-extern "C" int piqp_signed_chol_inv_cluster_size(int n, int elem) {
-  return cluster_size(n, elem);
 }

@@ -42,7 +42,6 @@ _ENTRY_POINTS = {
     "piqp_chol_inv_apply_f64": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
     "piqp_signed_chol_inv_resident_f32": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
     "piqp_signed_chol_inv_resident_f64": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
-    "piqp_signed_chol_inv_cluster_size": (_INT, _INT),
     "piqp_signed_chol_inv_streamed_f32": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR),
     "piqp_signed_chol_inv_streamed_f64": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR),
 }

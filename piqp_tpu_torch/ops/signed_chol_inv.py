@@ -74,8 +74,6 @@ launches_by_cluster = {c: 0 for c in range(1, MAX_CLUSTER + 1)}
 def kernel_route(n: int, dtype: torch.dtype) -> str:
     """Where a CUDA batch of n x n matrices of ``dtype`` goes: "resident"
     (with ``cluster_size(n, dtype)`` blocks per matrix) or "blocked"."""
-    if dtype not in _DTYPES:
-        raise TypeError(f"signed_cholesky_with_inverse takes float32 or float64, got {dtype}")
     return "resident" if n <= MAX_KERNEL_N else "blocked"
 
 

@@ -314,7 +314,7 @@ def test_signed_resident_layout_matches_the_kernel_source(dtype):
     max_cluster = int(re.search(r"constexpr int kMaxCluster = (\d+);", src).group(1))
     panel = int(re.search(r"constexpr int kNb = (\d+);", src).group(1))
     expr = re.search(
-        r"constexpr int resident_smem_bytes\(int n, int elem, int c\) \{ return ([^;]+); \}", src
+        r"constexpr int resident_smem_bytes\(int n, int elem, int c\) \{\s*return ([^;]+);\s*\}", src
     ).group(1).replace("/", "//")  # C's integer division
     assert (limit, max_cluster, panel) == (
         signed_chol_inv.SMEM_PER_BLOCK, signed_chol_inv.MAX_CLUSTER, signed_chol_inv.PANEL_ROWS)
