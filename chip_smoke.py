@@ -380,6 +380,8 @@ def _check_k3(torch, smi) -> list:
         plain_ms = _time_ms(torch, lambda: sci.signed_chol_inv_reference(K, signs),
                             count=3, windows=1)
         K64, signs64 = K[:LDLT_B64].contiguous(), signs
+        cluster64, L, Linv = routed(K64, signs64)
+        worst = max(worst, check(name, K64, signs64, L, Linv, f"resident c={cluster64}"))
         ms64 = _time_ms(torch, lambda: sci.signed_cholesky_with_inverse(K64, signs64))
         bound_ms, bound_by = _bound(name, (_factor_elements(B, n) + n) * K.element_size(),
                                     2 * B * n ** 3 / 3)

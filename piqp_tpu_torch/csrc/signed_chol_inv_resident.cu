@@ -123,7 +123,7 @@ constexpr int kNb = 8;           // panel width: rows dealt to the blocks, colum
 constexpr int kRows = 4;         // rows of a warp's tile in phase C
 constexpr int kRStep = 4;        // strip rows whose loads phase C issues together
 constexpr int kMaxN = 256;
-constexpr int kMaxCluster = 4;
+constexpr int kMaxCluster = 3;  // the largest cluster_size below, for n <= kMaxN
 constexpr int kSmemPerBlock = 232448;  // dynamic shared memory a block may opt into
 
 // Shared memory of one block of a c-block cluster: its rows (the panels
@@ -144,12 +144,10 @@ constexpr int cluster_size(int n, int elem) {
 __device__ __forceinline__ float rsqrt_of(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double rsqrt_of(double x) { return rsqrt(x); }
 
-// global row of a block's local row, and the reverse
+// global row of a block's local row
 __device__ __forceinline__ int global_row(int lr, int b, int c) {
   return ((lr / kNb) * c + b) * kNb + lr % kNb;
 }
-__device__ __forceinline__ int local_row(int i, int c) { return (i / kNb / c) * kNb + i % kNb; }
-__device__ __forceinline__ int owner_of(int i, int c) { return (i / kNb) % c; }
 
 // Copy the lower triangle of the block's own rows of K into M, one warp
 // per row, four rows in flight per lane on the 16-byte path.  A row's last
@@ -485,8 +483,7 @@ signed_chol_inv_resident_kernel(const T* __restrict__ K, const T* __restrict__ s
 
 template <typename T>
 int launch(const T* K, const T* signs, T* L, T* Linv, int B, int n, int c, void* stream) {
-  if (B < 0 || n < 1 || n > kMaxN || c < 1 || c > kMaxCluster ||
-      resident_smem_bytes(n, sizeof(T), c) > kSmemPerBlock) {
+  if (B < 0 || n < 1 || n > kMaxN || c != cluster_size(n, sizeof(T))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return 0;
@@ -516,12 +513,11 @@ int launch(const T* K, const T* signs, T* L, T* Linv, int B, int n, int c, void*
 
 // Plain C interface (bound with ctypes).  K, L and Linv are contiguous
 // (B, n, n) device buffers, signs a contiguous (n,) device buffer of the
-// same type; `cluster` is the number of blocks per matrix (the route
-// passes cluster_size's, mirrored in ops/signed_chol_inv.py).  The launch
-// goes on `stream` and does not synchronise.  Returns the cudaError_t of
-// the attribute call or of the launch, 0 on success, and
-// cudaErrorInvalidValue for an n or a cluster whose blocks cannot hold
-// the matrix.
+// same type; `cluster` is the number of blocks per matrix, which must be
+// cluster_size(n, ...) above (mirrored in ops/signed_chol_inv.py).  The
+// launch goes on `stream` and does not synchronise.  Returns the
+// cudaError_t of the attribute call or of the launch, 0 on success, and
+// cudaErrorInvalidValue for an n above 256 or another cluster size.
 extern "C" int piqp_signed_chol_inv_resident_f32(const float* K, const float* signs, float* L,
                                                  float* Linv, int B, int n, int cluster,
                                                  void* stream) {

@@ -42,7 +42,9 @@ _DTYPES = (torch.float32, torch.float64)
 SMEM_PER_BLOCK = 232_448
 # rows of a panel, the unit of rows dealt to a cluster's blocks
 PANEL_ROWS = 8
-MAX_CLUSTER = 4
+# the largest cluster the route takes (float64 from n = 225); 4-block
+# clusters were twice as slow as 3 at n = 256 (PERF.md)
+MAX_CLUSTER = 3
 
 
 def resident_smem_bytes(n: int, itemsize: int, cluster: int) -> int:
@@ -116,10 +118,10 @@ def signed_chol_inv_reference(K: torch.Tensor, signs: torch.Tensor):
     return torch.tril(W), Linv
 
 
-def _launch(K: torch.Tensor, signs: torch.Tensor, route: str, cluster: int | None = None):
+def _launch(K: torch.Tensor, signs: torch.Tensor, route: str):
     """Launch the kernel of ``route`` ("resident" or "streamed") on a CUDA
-    batch; the resident kernel with ``cluster`` blocks per matrix, by
-    default ``cluster_size(n, dtype)``."""
+    batch; the resident kernel with ``cluster_size(n, dtype)`` blocks per
+    matrix."""
     from ._build import library
 
     if not K.is_contiguous():
@@ -132,7 +134,7 @@ def _launch(K: torch.Tensor, signs: torch.Tensor, route: str, cluster: int | Non
     fn = getattr(library(), f"piqp_signed_chol_inv_{route}_{suffix}")
     args = [K.data_ptr(), s.data_ptr(), L.data_ptr(), Linv.data_ptr(), B, n]
     if route == "resident":
-        cluster = cluster_size(n, K.dtype) if cluster is None else cluster
+        cluster = cluster_size(n, K.dtype)
         args.append(cluster)
     with torch.cuda.device(K.device):
         args.append(torch.cuda.current_stream(K.device).cuda_stream)

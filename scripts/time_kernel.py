@@ -1,0 +1,120 @@
+"""Time one resident factor-with-inverse kernel of one or more checkouts of
+this repository on one CUDA card, each checkout in a fresh process, in the
+order given:
+
+    python3 scripts/time_kernel.py K1|K3 ROOT [ROOT ...]
+
+K1 is ``ops/chol_inv.cholesky_with_inverse`` at B = 1024, n = 128; K3 is
+``ops/signed_chol_inv.signed_cholesky_with_inverse`` at the dense_ldlt
+fleet's B = 256, n = 256 and its float64 batch, B = 64.  Give two versions
+as parent, change, change, parent to compare them within one run.  For each
+ROOT the script imports ``piqp_tpu_torch`` from ROOT, builds its kernels
+there (nvcc seconds, 0 when that checkout's library is up to date), reads
+ptxas's registers and spills of each resident instance of the kernel, and,
+in float32 and float64 at each shape, holds L and Linv against the plain
+version with chip_smoke.py's tolerances, then times the wrapper with
+chip_smoke.py's looped CUDA events.  It prints one JSON line per ROOT and
+exits nonzero if any ROOT fails or no card is there.
+"""
+
+from __future__ import annotations
+
+import importlib
+import importlib.util
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+# per kernel: its module in piqp_tpu_torch.ops, wrapper, plain version,
+# chip_smoke.py's batch maker, the (B, n) shapes timed, and the kernel
+# whose ptxas instances are read (the digit is the mangled name's length)
+KERNELS = {
+    "K1": dict(module="chol_inv", wrapper="cholesky_with_inverse",
+               reference="chol_inv_reference", batch="_spd_batch", shapes=[(1024, 128)],
+               instance=r"\dchol_inv_resident_kernel"),
+    "K3": dict(module="signed_chol_inv", wrapper="signed_cholesky_with_inverse",
+               reference="signed_chol_inv_reference", batch="_quasidef_batch",
+               shapes=[(256, 256), (64, 256)], instance=r"\dsigned_chol_inv_resident_kernel"),
+}
+
+
+def _instances(log: str, instance: str) -> list:
+    """(function, registers, spill stores) of each instance of a kernel in
+    an nvcc -Xptxas -v log."""
+    out = []
+    for m in re.finditer(
+        rf"Compiling entry function '(\S*{instance}\S*)'.*?"
+        r"(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S):
+        out.append(dict(function=m[1], registers=int(m[3]), spill_stores=int(m[2])))
+    return out
+
+
+def _child(kernel: str, root: Path) -> dict:
+    sys.path.insert(0, str(root))
+    import torch
+
+    from piqp_tpu_torch.ops import _build
+
+    spec = KERNELS[kernel]
+    mod = importlib.import_module(f"piqp_tpu_torch.ops.{spec['module']}")
+    wrapper, reference = getattr(mod, spec["wrapper"]), getattr(mod, spec["reference"])
+    # this repository's helpers, whichever checkout is timed
+    smoke_spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(smoke_spec)
+    smoke_spec.loader.exec_module(smoke)
+    batch = getattr(smoke, spec["batch"])
+
+    if Path(mod.__file__).resolve().parents[2] != root:
+        raise RuntimeError(f"piqp_tpu_torch came from {mod.__file__}, not {root}")
+    _build.library()
+    result = dict(kernel=kernel, root=str(root), build_s=_build.BuildInfo.seconds,
+                  instances=_instances(_build.BuildInfo.log, spec["instance"]),
+                  card=torch.cuda.get_device_name(0), smi=smoke._smi())
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).removeprefix("torch.")
+        tol = smoke.K1_TOL[name]
+        for B, n in spec["shapes"]:
+            args = batch(torch, B, n, dtype, seed=7)
+            args = args if isinstance(args, tuple) else (args,)
+            L, Linv = wrapper(*args)
+            torch.cuda.synchronize()
+            L_ref, Linv_ref = reference(*args)
+            err_L = (L - L_ref).abs().max().item()
+            err_Li = (Linv - Linv_ref).abs().max().item()
+            if not (err_L <= tol * max(1.0, L_ref.abs().max().item())
+                    and err_Li <= tol * Linv_ref.abs().max().item()):
+                raise AssertionError(f"{root} {kernel} {name} B={B} n={n}: |L-L_ref| "
+                                     f"{err_L:.3e} |Linv-Linv_ref| {err_Li:.3e} beyond the "
+                                     f"tolerance")
+            result[f"{name} B={B} n={n}"] = dict(
+                ms=smoke._time_ms(torch, lambda: wrapper(*args)), err_L=err_L, err_Linv=err_Li)
+    return result
+
+
+def main() -> int:
+    args = sys.argv[1:]
+    if args[:1] == ["--child"]:
+        print(json.dumps(_child(args[1], Path(args[2]).resolve())), flush=True)
+        return 0
+    if len(args) < 2 or args[0] not in KERNELS:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_kernel: no CUDA device available", file=sys.stderr)
+        return 2
+    failed = 0
+    for root in args[1:]:
+        rc = subprocess.run([sys.executable, __file__, "--child", args[0], root],
+                            timeout=900).returncode
+        failed += rc != 0
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
