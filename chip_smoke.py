@@ -21,17 +21,24 @@ Phases:
      (through its private launcher), the plain version and the library at
      the main path's shape, and bounds;
   2b. K2 (Cholesky with inverse and apply) and K3 (signed Cholesky with
-     inverse) against their plain versions, float32 and float64: K2 at
-     D in {4, 8, 16, 33, 64, 128} (N = 5, R = 2D + 4) and at the
-     multistage fleet's shape N = 12,800, D = 8, R = 20; K3 at
+     inverse) against their plain versions, float32 and float64.  K2 at
+     D in {4, 8, 16, 33, 64, 128} (N = 5, R = 2D + 4), at
+     D in {1, 4, 7, 8, 9, 16, 23, 31, 32} with R = 3 and R = 2D + 4
+     (N = 101, a ragged last block), at the multistage fleet's shape
+     N = 12,800, D = 8, R = 20 and at N = 5,376, D = 23, R = 50, each launch
+     checked to take the route ``apply_kernel_route`` names (small up to
+     D = 32, general above); an indefinite block in the middle of a batch
+     and as the last group of a warp; at the two large shapes the small
+     kernel's device time (a CUDA graph of launches) with warm and cold L2,
+     its looped time, the general kernel's, and at the fleet's shape the
+     plain version's and the library's.  K3 at
      Np in {64, 128, 168, 169, 192, 224, 225, 239, 240, 256} (B = 5, mixed
      sign patterns; both sides of each dtype's cluster-size limits) and at
      the dense_ldlt fleet's shape B = 256, Np = 256, each launch checked to
      take the route and cluster size ``kernel_route`` and ``cluster_size``
-     name, and the streamed comparator at the fleet's shape; wrong-sign
-     poisoning on a one-block and a clustered shape; times and bounds at
-     the fleets' shapes (K3: the resident kernel at B = 256 and B = 64,
-     the streamed kernel, the blocked route and the plain version);
+     name; wrong-sign poisoning on a one-block and a clustered shape; times
+     and bounds at the fleet's shape (the resident kernel at B = 256 and
+     B = 64, the blocked route and the plain version);
   3. main path: 1024 problems dense_strongly_convex_qp(128, 64, 64,
      seed=1000+i) (the benchmarks/make_batch.py set), cold with
      mixed precision and one warm re-solve round, with K1 launch counts
@@ -50,6 +57,7 @@ Phases:
      ra=4, rg=4, seed=4+i) (cyclic reduction, 7 levels of K2), mixed cold,
      one warm round and a float64 cold solve of 64; then 8 problems at
      T = 272 (the chunked scheme with cyclic-reduction interiors), float64;
+     every K2 launch of these runs checked to take the small kernel;
   8. SparseSolver: one T = 100 problem as scipy CSC through structure
      detection (the port's C++ library), solve, update(c), warm solve;
   9. the first 4 problems of phases 6 and 7 again on the CPU, and a profile
@@ -84,7 +92,20 @@ LDLT_B = 256
 # the multistage fleet (benchmarks/horizon_bench.py's shape at BASELINE
 # config 4's horizon): n = 804, p = 400, m = 400
 MS_B, MS_T, MS_D, MS_DA, MS_RA, MS_RG = 256, 100, 8, 4, 4, 4
-K2_SHAPES = [(5, 4), (5, 8), (5, 16), (5, 33), (5, 64), (5, 128), (MS_B * MS_T // 2, MS_D)]
+# K2's (N, D, R): the general kernel's shapes, R = 2D + 4; every n of the
+# small kernel with R below and above its group's lanes, at an N that no
+# block's matrix count divides (a ragged last block); then the timed
+# shapes, the multistage fleet's first level and the scenario_mpc-shaped
+# cell's (256 problems at T = 43, D = 23, Da = 4: 21 odd blocks each)
+K2_RAGGED_N = 101
+K2_FLEET = (MS_B * MS_T // 2, MS_D, 2 * MS_D + MS_DA)
+K2_D23 = (256 * (43 // 2), 23, 2 * 23 + 4)
+K2_SHAPES = ([(5, D, 2 * D + 4) for D in (4, 8, 16, 33, 64, 128)]
+             + [(K2_RAGGED_N, D, R) for D in (1, 4, 7, 8, 9, 16, 23, 31, 32)
+                for R in (3, 2 * D + 4)]
+             + [K2_FLEET, K2_D23])
+# rotated input sets of the cold-L2 timing: more than the 50 MB L2 holds
+K2_COLD_SETS = 8
 K3_SHAPES = [(5, 64), (5, 128), (5, 168), (5, 169), (5, 192), (5, 224), (5, 225), (5, 239),
              (5, 240), (5, 256), (LDLT_B, 256)]
 # the float64 dense_ldlt batch
@@ -123,6 +144,33 @@ def _time_ms(torch, fn, count: int = 20, windows: int = 3) -> float:
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop) / count)
+    return statistics.median(times)
+
+
+def _graph_ms(torch, fns, count: int = 24, windows: int = 3) -> float:
+    """Device time per call: ``count`` calls, taking ``fns`` in turn,
+    captured into one CUDA graph after a warm-up call of each, and CUDA
+    events around a replay; the median of ``windows`` replays.  The graph
+    holds no host work, so a short kernel is timed without the wrapper's."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for c in range(count):
+            fns[c % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / count)
+    del graph
     return statistics.median(times)
 
 
@@ -188,10 +236,19 @@ def _reset_counts() -> None:
     from piqp_tpu_torch.ops import chol_inv, signed_chol_inv
 
     for counts in (chol_inv.launches_by_dtype, chol_inv.launches_by_route,
-                   chol_inv.apply_launches_by_dtype, signed_chol_inv.launches_by_dtype,
+                   chol_inv.apply_launches_by_dtype, chol_inv.apply_launches_by_route,
+                   signed_chol_inv.launches_by_dtype,
                    signed_chol_inv.launches_by_route, signed_chol_inv.launches_by_cluster):
         for k in counts:
             counts[k] = 0
+
+
+def _apply_batch(torch, N, D, R, dtype, seed):
+    """(K, RHS): N SPD D x D blocks and N right-hand D x R blocks."""
+    K = _spd_batch(torch, N, D, dtype, seed=seed)
+    RHS = torch.as_tensor(np.random.default_rng(seed).uniform(-1, 1, (N, D, R)),
+                          dtype=dtype, device="cuda")
+    return K, RHS
 
 
 def _quasidef_batch(torch, B, n, dtype, seed):
@@ -233,76 +290,124 @@ def _bound(name, nbytes, flops):
 
 
 def _check_k2(torch, smi) -> list:
-    """K2 against its plain version on the card, times at the fleet's shape."""
+    """K2 against its plain version on the card on both kernel routes;
+    device, looped and cold-L2 times at the fleet's shape and at D = 23."""
     from piqp_tpu_torch.ops import chol_inv
+
+    def routed(K, RHS):
+        """cholesky_inverse_apply, checked to launch the route
+        apply_kernel_route names."""
+        route = chol_inv.apply_kernel_route(K.shape[-1], K.dtype, RHS.shape[-1])
+        before = dict(chol_inv.apply_launches_by_route)
+        out = chol_inv.cholesky_inverse_apply(K, RHS)
+        grown = {k: chol_inv.apply_launches_by_route[k] - before[k] for k in before}
+        if grown != {k: int(k == route) for k in before}:
+            raise AssertionError(f"K2 n={K.shape[-1]} r={RHS.shape[-1]} {K.dtype}: route "
+                                 f"{route}, launches {grown}")
+        return route, out
 
     entries = []
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).removeprefix("torch.")
         tol = K1_TOL[name]
         worst = 0.0
-        for N, D in K2_SHAPES:
-            R = 2 * D + 4
-            K = _spd_batch(torch, N, D, dtype, seed=D)
-            RHS = torch.as_tensor(np.random.default_rng(D).uniform(-1, 1, (N, D, R)),
-                                  dtype=dtype, device="cuda")
-            L, Linv, Y = chol_inv.cholesky_inverse_apply(K, RHS)
+        for N, D, R in K2_SHAPES:
+            K, RHS = _apply_batch(torch, N, D, R, dtype, seed=D + R)
+            route, (L, Linv, Y) = routed(K, RHS)
             torch.cuda.synchronize()
             L_ref, Linv_ref, Y_ref = chol_inv.chol_inv_apply_reference(K, RHS)
             eye = torch.eye(D, dtype=dtype, device="cuda")
             err_L = (L - L_ref).abs().max().item()
             err_I = (L @ Linv - eye).abs().max().item()
             err_Y = (Y - Y_ref).abs().max().item()
-            print(f"[K2 {name}] N={N} D={D} R={R}: |L-L_ref| {err_L:.3e} "
+            print(f"[K2 {name}] {route} N={N} D={D} R={R}: |L-L_ref| {err_L:.3e} "
                   f"|L Linv - I| {err_I:.3e} |Y-Y_ref| {err_Y:.3e}")
             if not (err_L <= tol * max(1.0, L_ref.abs().max().item())
                     and err_I <= 50 * tol
                     and err_Y <= K2_Y_RTOL[name] * Y_ref.abs().max().item()):
-                raise AssertionError(f"K2 {name} N={N} D={D} disagrees with its plain version")
+                raise AssertionError(f"K2 {name} {route} N={N} D={D} R={R} disagrees with its "
+                                     f"plain version")
+            if bool(torch.triu(L, 1).any()) or bool(torch.triu(Linv, 1).any()):
+                raise AssertionError(f"K2 {name} {route} D={D}: nonzero upper triangle")
             worst = max(worst, err_L, err_Y)
-        # one indefinite block gives non-finite output for itself only
-        K = _spd_batch(torch, 4, 12, dtype, seed=1)
-        K[2, 5, 5] = -1e3
-        RHS = torch.ones((4, 12, 28), dtype=dtype, device="cuda")
-        L, Linv, Y = chol_inv.cholesky_inverse_apply(K, RHS)
-        fin = [bool(torch.isfinite(a[i]).all()) for i in range(4) for a in (L, Linv, Y)]
-        if fin != [True] * 6 + [False] * 3 + [True] * 3:
-            raise AssertionError(f"K2 {name}: indefinite input gave finite flags {fin}")
+        # one indefinite block gives non-finite output for itself only: in
+        # the middle of a batch, and as the last group of a warp whose
+        # neighbours share its warp and the next one
+        for N, D, R, bad in ((4, 12, 28, 2), (8, 8, 20, 3), (16, 3, 10, 7)):
+            K = _spd_batch(torch, N, D, dtype, seed=1)
+            K[bad, D // 2, D // 2] = -1e3
+            route, (L, Linv, Y) = routed(K, torch.ones((N, D, R), dtype=dtype, device="cuda"))
+            fin = [bool(torch.isfinite(a[i]).all()) for i in range(N) for a in (L, Linv, Y)]
+            want = [i != bad for i in range(N) for _ in range(3)]
+            print(f"[K2 {name}] {route} N={N} D={D}: indefinite block {bad}, finite blocks "
+                  f"{[i for i in range(N) if fin[3 * i]]}")
+            if fin != want:
+                raise AssertionError(f"K2 {name} {route} D={D}: indefinite block {bad} gave "
+                                     f"finite flags {fin}")
 
-        N, D = K2_SHAPES[-1]
-        R = 2 * D + 4
-        K = _spd_batch(torch, N, D, dtype, seed=7)
-        RHS = torch.as_tensor(np.random.default_rng(7).uniform(-1, 1, (N, D, R)),
-                              dtype=dtype, device="cuda")
-        ms = _time_ms(torch, lambda: chol_inv.cholesky_inverse_apply(K, RHS))
-        plain_ms = _time_ms(torch, lambda: chol_inv.chol_inv_apply_reference(K, RHS),
-                            count=3, windows=1)
-        eye = torch.eye(D, dtype=dtype, device="cuda").expand_as(K)
+        timed = {}
+        for N, D, R in (K2_FLEET, K2_D23):
+            K, RHS = _apply_batch(torch, N, D, R, dtype, seed=7)
+            if chol_inv.apply_kernel_route(D, dtype, R) != "small":
+                raise AssertionError(f"K2 {name} D={D} R={R} is not routed to the small kernel")
+            sets = [_apply_batch(torch, N, D, R, dtype, seed=100 + i) for i in range(K2_COLD_SETS)]
+            small = lambda: chol_inv.cholesky_inverse_apply(K, RHS)
+            general = lambda: chol_inv._launch_apply(K, RHS, "general")
+            t = dict(
+                ms=_graph_ms(torch, [small]),
+                ms_cold_l2=_graph_ms(torch, [lambda a=a: chol_inv.cholesky_inverse_apply(*a)
+                                             for a in sets]),
+                looped_ms=_time_ms(torch, small),
+                general_ms=_graph_ms(torch, [general]),
+                general_cold_l2_ms=_graph_ms(torch, [lambda a=a: chol_inv._launch_apply(
+                    *a, "general") for a in sets]),
+                general_looped_ms=_time_ms(torch, general),
+            )
+            del sets
+            t["bound_ms"], t["bound_by"] = _bound(
+                name, (_factor_elements(N, D) + 2 * N * D * R) * K.element_size(),
+                N * (2 * D ** 3 / 3 + 2 * D * D * R))
+            if (N, D, R) == K2_FLEET:
+                eye = torch.eye(D, dtype=dtype, device="cuda").expand_as(K)
 
-        def library():
-            Lc = torch.linalg.cholesky_ex(K)[0]
-            Li = torch.linalg.solve_triangular(Lc, eye, upper=False)
-            return Li.mT @ (Li @ RHS)
+                def library():
+                    Lc = torch.linalg.cholesky_ex(K)[0]
+                    Li = torch.linalg.solve_triangular(Lc, eye, upper=False)
+                    return Li.mT @ (Li @ RHS)
 
-        library_ms = _time_ms(torch, library)
-        bound_ms, bound_by = _bound(
-            name, (_factor_elements(N, D) + 2 * N * D * R) * K.element_size(),
-            N * (2 * D ** 3 / 3 + 2 * D * D * R))
-        print(f"[K2 {name}] N={N} D={D} R={R}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}); {smi}")
+                t["library_ms"] = _time_ms(torch, library)
+                t["plain_ms"] = _time_ms(torch, lambda: chol_inv.chol_inv_apply_reference(K, RHS),
+                                         count=3, windows=1)
+            l2 = " (under the HBM bound: it reads the L2)" if t["ms"] < t["bound_ms"] else ""
+            print(f"[K2 {name}] N={N} D={D} R={R}: small kernel device {t['ms']:.4f} ms warm L2"
+                  f"{l2}, {t['ms_cold_l2']:.4f} ms cold L2, looped {t['looped_ms']:.4f} ms; "
+                  f"general kernel device {t['general_ms']:.4f} ms warm, "
+                  f"{t['general_cold_l2_ms']:.4f} cold, looped {t['general_looped_ms']:.4f}; "
+                  f"general/small {t['general_ms'] / t['ms']:.2f}x warm, "
+                  f"{t['general_cold_l2_ms'] / t['ms_cold_l2']:.2f}x cold; bound "
+                  f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}), cold/bound "
+                  f"{t['ms_cold_l2'] / t['bound_ms']:.2f}x; {smi}")
+            if "plain_ms" in t:
+                print(f"[K2 {name}] N={N} D={D} R={R}: plain {t['plain_ms']:.4f} ms, library "
+                      f"{t['library_ms']:.4f} ms; {smi}")
+            timed[D] = t
+        fleet = timed[K2_FLEET[1]]
         entries.append(dict(
-            name=f"chol_inv_apply_{name}", route="cuda",
-            source="piqp_tpu_torch/csrc/chol_inv_apply.cu",
+            name=f"chol_inv_apply_{name}", route="cuda", kernel_route="small",
+            source="piqp_tpu_torch/csrc/chol_inv_apply_small.cu",
             replaces="piqp_tpu/ops/pallas_chol.py:270",
-            launches=None, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            launches=None, max_abs_err=worst, ms=fleet["ms"], ms_cold_l2=fleet["ms_cold_l2"],
+            looped_ms=fleet["looped_ms"], general_ms=fleet["general_ms"],
+            library_ms=fleet["library_ms"], plain_ms=fleet["plain_ms"],
+            bound_ms=fleet["bound_ms"], bound_by=fleet["bound_by"],
+            d23=timed[K2_D23[1]],
         ))
     return entries
 
 
 def _check_k3(torch, smi) -> list:
-    """K3 against its plain version on the card on both kernels, times at
-    the fleet's shape."""
+    """K3 against its plain version on the card, times at the fleet's
+    shape."""
     from piqp_tpu_torch.ops import ldlt
     from piqp_tpu_torch.ops import signed_chol_inv as sci
 
@@ -367,15 +472,12 @@ def _check_k3(torch, smi) -> list:
                 raise AssertionError(f"K3 {name} n={n}: wrong-sign pivot gave finite flags "
                                      f"{fin.tolist()}")
 
-        # the fleet's shape: the resident kernel, the streamed one through
-        # its private launcher, the blocked route and the plain version
+        # the fleet's shape: the resident kernel, the blocked route and the
+        # plain version
         B, n = K3_SHAPES[-1]
         K, signs = _quasidef_batch(torch, B, n, dtype, seed=7)
         cluster = sci.cluster_size(n, dtype)
-        L, Linv = sci._launch(K, signs, "streamed")
-        worst_streamed = check(name, K, signs, L, Linv, "streamed")
         ms = _time_ms(torch, lambda: sci.signed_cholesky_with_inverse(K, signs))
-        streamed_ms = _time_ms(torch, lambda: sci._launch(K, signs, "streamed"), count=5)
         blocked_ms = _time_ms(torch, lambda: ldlt.blocked_inverse(K, signs), count=3, windows=1)
         plain_ms = _time_ms(torch, lambda: sci.signed_chol_inv_reference(K, signs),
                             count=3, windows=1)
@@ -388,19 +490,18 @@ def _check_k3(torch, smi) -> list:
         bound64_ms, _ = _bound(name, (_factor_elements(LDLT_B64, n) + n) * K.element_size(),
                                2 * LDLT_B64 * n ** 3 / 3)
         print(f"[K3 {name}] B={B} n={n}: resident kernel (cluster {cluster}) {ms:.4f} ms, "
-              f"streamed kernel {streamed_ms:.4f} ms, blocked route {blocked_ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.1f} us ({bound_by}); streamed/resident "
-              f"{streamed_ms / ms:.2f}x, blocked/resident {blocked_ms / ms:.2f}x; no single "
-              f"library call computes L with K = L S L' (library_ms null); {smi}")
+              f"blocked route {blocked_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms * 1e3:.1f} us ({bound_by}); blocked/resident {blocked_ms / ms:.2f}x; "
+              f"no single library call computes L with K = L S L' (library_ms null); {smi}")
         print(f"[K3 {name}] B={LDLT_B64} n={n}: resident kernel {ms64:.4f} ms, bound "
               f"{bound64_ms * 1e3:.1f} us; {smi}")
         entries.append(dict(
             name=f"signed_chol_inv_{name}", route="cuda", kernel_route="resident",
             cluster=cluster, source="piqp_tpu_torch/csrc/signed_chol_inv_resident.cu",
             replaces="piqp_tpu/ops/pallas_chol.py:381",
-            launches=None, max_abs_err=max(worst, worst_streamed), ms=ms, plain_ms=plain_ms,
+            launches=None, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            streamed_ms=streamed_ms, blocked_ms=blocked_ms, ms_b64=ms64,
+            blocked_ms=blocked_ms, ms_b64=ms64,
         ))
     return entries
 
@@ -715,7 +816,7 @@ def main() -> int:
         raise AssertionError(f"dense_ldlt fleet: K3 launches per dtype {k3_launches}")
     k3_routes = dict(signed_chol_inv.launches_by_route)
     k3_clusters = {c: k for c, k in signed_chol_inv.launches_by_cluster.items() if k}
-    if k3_routes != {"resident": sum(k3_launches.values()), "streamed": 0}:
+    if k3_routes != {"resident": sum(k3_launches.values())}:
         raise AssertionError(f"dense_ldlt fleet K3 launches by route {k3_routes}: all must "
                              f"be resident")
     for label, res, secs, probs in (("cold", cold6, cold6_s, lprobs),
@@ -734,8 +835,6 @@ def main() -> int:
     viol = _check_round(lprobs[:LDLT_B64], res6_64, "dense_ldlt float64")
     if signed_chol_inv.launches_by_dtype["float64"] <= before:
         raise AssertionError("dense_ldlt float64 batch did not launch K3")
-    if signed_chol_inv.launches_by_route["streamed"]:
-        raise AssertionError("dense_ldlt float64 batch launched the streamed K3")
     print(f"[ldlt f64] B={LDLT_B64} all SOLVED in {secs:.3f} s, iterations max "
           f"{int(res6_64.info.iter.max())}, worst KKT {viol:.2e}")
     f64_lu = Settings(kkt_solver=KKTBackend.dense_lu)
@@ -803,6 +902,10 @@ def main() -> int:
     print(f"[ms T=272] B=8 all SOLVED in {secs:.3f} s (chunked, C={multistage._chunk_count(272)}, "
           f"cyclic-reduction interiors), iterations max {int(res_long.info.iter.max())}, "
           f"K2 float64 launches {grown}, worst KKT {viol:.2e}")
+    k2_routes = dict(chol_inv.apply_launches_by_route)
+    print(f"[ms] K2 launches by route in the mixed, float64 and T = 272 runs: {k2_routes}")
+    if k2_routes != {"small": sum(chol_inv.apply_launches_by_dtype.values()), "general": 0}:
+        raise AssertionError(f"multistage K2 launches by route {k2_routes}: all must be small")
 
     # ---- 8. SparseSolver: structure detection, solve, update(c), warm solve
     prob0 = _stage_problem(multistage, kws[0])
@@ -853,7 +956,7 @@ def main() -> int:
                    ("signed_chol_inv_resident_kernel",))
     _profile_round(torch, "ms warm",
                    lambda: solve_batch(data7w, s_ms, warm=warm7_pt), warm7_s, smi,
-                   ("chol_inv_apply_kernel",))
+                   ("chol_inv_apply_small_kernel", "chol_inv_apply_kernel"))
     for entry in kernels:
         for prefix, counts in (("chol_inv_apply_", k2_launches),
                                ("signed_chol_inv_", k3_launches)):

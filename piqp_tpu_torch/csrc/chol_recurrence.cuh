@@ -1,6 +1,6 @@
-// The column recurrence shared by K1 (chol_inv.cu), K2 (chol_inv_apply.cu)
-// and K3 (signed_chol_inv.cu): factor K = L S L^T in place and build Linv = L^-1
-// row by row, for one matrix per thread block.
+// The column recurrence shared by K1's streamed kernel (chol_inv.cu) and
+// K2's general kernel (chol_inv_apply.cu): factor K = L S L^T in place and
+// build Linv = L^-1 row by row, for one matrix per thread block.
 //
 //   s_j      = signs[j]                 (S = I when signs is null)
 //   d        = sqrt(s_j W[j, j])        (W: running workspace)
@@ -9,8 +9,8 @@
 //   Linv[j,] = (e_j - L[j, :j] Linv[:j, :]) / d
 //
 // This is the TPU kernels' recurrence (pallas_chol.py:65 and :381), with
-// the sign woven into the column scaling and the downdate for K3; K1 and
-// K2 pass no signs.  A pivot of the wrong sign gives
+// a sign woven into the column scaling and the downdate; both callers pass
+// no signs (S = I).  A pivot of the wrong sign gives
 // sqrt of a negative number: the problem's outputs come out non-finite,
 // and nothing clamps it.
 //
@@ -19,8 +19,8 @@
 // on exit the lower triangle of W holds L (its strict upper triangle
 // still holds K's entries) and Li holds L^-1.  W, Li, col and row do not
 // overlap.  Every thread of the block calls this; the block has kBlock
-// threads, or blockDim.x when kBlock is 0, a multiple of 32.  K1 and K3
-// pass their fixed block size so that the loop strides are constants.
+// threads, or blockDim.x when kBlock is 0, a multiple of 32.  K1 passes
+// its fixed block size so that the loop strides are constants.
 
 #pragma once
 

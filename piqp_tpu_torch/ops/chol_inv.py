@@ -29,9 +29,18 @@ dispatch (``custom_vmap``) has no counterpart here.
 
 K2, ``cholesky_inverse_apply`` (``_chol_inv_apply_kernel``'s counterpart),
 adds the two substitution products Y = Linv^T (Linv RHS) = K^-1 RHS to the
-same pass: the hand-written kernel ``csrc/chol_inv_apply.cu`` on a CUDA
-tensor, ``chol_inv_apply_reference`` on a CPU tensor.  The multistage
-backend's cyclic reduction calls it once per level for all odd blocks.
+same pass.  The multistage backend's cyclic reduction calls it once per
+level for all odd blocks.  On a CUDA tensor ``apply_kernel_route(n, dtype,
+r)`` picks:
+  - ``"small"``, ``csrc/chol_inv_apply_small.cu``, for n <= ``SMALL_MAX_N``
+    (32): many matrices per block, each factored in registers by a group of
+    ``group_lanes(n)`` lanes, placed by ``small_threads`` and
+    ``small_smem_bytes`` (the kernel's own formulas), while one warp's
+    matrices fit in shared memory;
+  - ``"general"``, ``csrc/chol_inv_apply.cu``, one block per matrix, up to
+    n = 256;
+  - ``"library"`` above.
+On a CPU tensor it runs ``chol_inv_apply_reference``.
 """
 
 from __future__ import annotations
@@ -59,12 +68,51 @@ RESIDENT_MAX_N = {
     for dt in _DTYPES
 }
 
+# K2's small kernel: lanes of a block, the largest n it takes
+SMALL_THREADS = 64
+SMALL_MAX_N = 32
+
+
+def group_lanes(n: int) -> int:
+    """Lanes of the small K2 kernel that factor one matrix: the power of
+    two >= n, at least 4."""
+    return 4 if n <= 4 else 8 if n <= 8 else 16 if n <= 16 else 32
+
+
+def step_cols(r: int, itemsize: int) -> int:
+    """Right-hand columns a lane of the small K2 kernel takes per step: a
+    16-byte vector's worth when r allows, else an 8-byte one, else one."""
+    for nbytes in (16, 8):
+        if r % (nbytes // itemsize) == 0:
+            return nbytes // itemsize
+    return 1
+
+
+def small_smem_bytes(n: int, r: int, itemsize: int, m: int) -> int:
+    """Shared memory of a small K2 block of m matrices: K and RHS (then Y),
+    each region rounded up to 16 bytes, and two broadcast rows of
+    ``step_cols(r) * group_lanes(n)`` values per matrix."""
+    return (((m * n * n * itemsize + 15) // 16 + (m * n * r * itemsize + 15) // 16) * 16
+            + 2 * m * group_lanes(n) * step_cols(r, itemsize) * itemsize)
+
+
+def small_threads(n: int, r: int, itemsize: int) -> int:
+    """Threads of a small K2 block: 256, halved while its matrices' shared
+    memory exceeds a block's; 0 when one warp's does."""
+    t = SMALL_THREADS
+    while t > 32 and small_smem_bytes(n, r, itemsize, t // group_lanes(n)) > SMEM_PER_BLOCK:
+        t //= 2
+    return 0 if small_smem_bytes(n, r, itemsize, t // group_lanes(n)) > SMEM_PER_BLOCK else t
+
+
 # Kernel launches made by ``cholesky_with_inverse`` (never by the plain
 # version or the library route), per dtype and per route;
-# ``apply_launches_by_dtype`` the same per dtype for ``cholesky_inverse_apply``.
+# ``apply_launches_by_dtype`` and ``apply_launches_by_route`` the same for
+# ``cholesky_inverse_apply``.
 launches_by_dtype = {"float32": 0, "float64": 0}
 launches_by_route = {"resident": 0, "streamed": 0}
 apply_launches_by_dtype = {"float32": 0, "float64": 0}
+apply_launches_by_route = {"small": 0, "general": 0}
 
 
 def kernel_route(n: int, dtype: torch.dtype) -> str:
@@ -172,7 +220,21 @@ def chol_inv_apply_reference(K: torch.Tensor, RHS: torch.Tensor):
     return L, Linv, torch.matmul(Linv.mT, torch.matmul(Linv, RHS))
 
 
-def _launch_apply(K: torch.Tensor, RHS: torch.Tensor):
+def apply_kernel_route(n: int, dtype: torch.dtype, r: int) -> str:
+    """Where a CUDA batch of n x n blocks of ``dtype`` with r right-hand
+    columns goes: "small", "general" or "library"."""
+    if n <= SMALL_MAX_N and small_threads(n, r, dtype.itemsize):
+        return "small"
+    return "general" if n <= MAX_KERNEL_N else "library"
+
+
+# the C entry point of each K2 kernel route
+_APPLY_ENTRY = {"small": "piqp_chol_inv_apply_small", "general": "piqp_chol_inv_apply"}
+
+
+def _launch_apply(K: torch.Tensor, RHS: torch.Tensor, route: str):
+    """Launch the K2 kernel of ``route`` ("small" or "general") on a CUDA
+    batch."""
     from ._build import library
 
     if not (K.is_contiguous() and RHS.is_contiguous()):
@@ -182,16 +244,16 @@ def _launch_apply(K: torch.Tensor, RHS: torch.Tensor):
     L = torch.empty_like(K)
     Linv = torch.empty_like(K)
     Y = torch.empty_like(RHS)
-    lib = library()
-    fn = (lib.piqp_chol_inv_apply_f32 if K.dtype == torch.float32
-          else lib.piqp_chol_inv_apply_f64)
+    suffix = "f32" if K.dtype == torch.float32 else "f64"
+    fn = getattr(library(), f"{_APPLY_ENTRY[route]}_{suffix}")
     with torch.cuda.device(K.device):
         stream = torch.cuda.current_stream(K.device).cuda_stream
         rc = fn(K.data_ptr(), RHS.data_ptr(), L.data_ptr(), Linv.data_ptr(),
                 Y.data_ptr(), N, n, r, stream)
     if rc != 0:
-        raise RuntimeError(f"chol_inv_apply kernel launch failed with cudaError_t {rc}")
+        raise RuntimeError(f"chol_inv_apply {route} kernel launch failed with cudaError_t {rc}")
     apply_launches_by_dtype[str(K.dtype).removeprefix("torch.")] += 1
+    apply_launches_by_route[route] += 1
     return L, Linv, Y
 
 
@@ -199,9 +261,9 @@ def cholesky_inverse_apply(K: torch.Tensor, RHS: torch.Tensor):
     """(L, Linv, Y = K^-1 RHS) for an (N, n, n) batch of SPD blocks and an
     (N, n, r) batch of right-hand blocks, float32 or float64.
 
-    CUDA tensor: the hand-written kernel (n <= 256) or, above that, the
-    library route with the two products.  CPU tensor: the plain version.
-    Any other device raises."""
+    CUDA tensor: the small or the general kernel, or the library route with
+    the two products, as ``apply_kernel_route`` says.  CPU tensor: the
+    plain version.  Any other device raises."""
     _check(K)
     if RHS.dtype != K.dtype or RHS.ndim != 3 or RHS.shape[:2] != K.shape[:2]:
         raise ValueError(
@@ -212,7 +274,8 @@ def cholesky_inverse_apply(K: torch.Tensor, RHS: torch.Tensor):
         return chol_inv_apply_reference(K, RHS)
     if K.device.type != "cuda" or RHS.device != K.device:
         raise ValueError(f"cholesky_inverse_apply runs on cuda or cpu, not {K.device}")
-    if K.shape[-1] > MAX_KERNEL_N:
+    route = apply_kernel_route(K.shape[-1], K.dtype, RHS.shape[-1])
+    if route == "library":
         L, Linv = _chol_inv_library(K)
         return L, Linv, torch.matmul(Linv.mT, torch.matmul(Linv, RHS))
-    return _launch_apply(K, RHS)
+    return _launch_apply(K, RHS, route)

@@ -19,10 +19,7 @@ the explicit-inverse factorization of the ``dense_ldlt`` backend.
     products in a loop over column blocks with a block forward
     substitution for the full inverse, as the JAX package does outside its
     kernel (``_signed_inv_xla``).
-  The first kernel, ``csrc/signed_chol_inv.cu`` (workspace in device
-  memory), stays as a comparator, reached only through ``_launch(K, signs,
-  "streamed")``.  A launch that fails raises; no route stands in for
-  another.
+  A launch that fails raises; no route stands in for another.
 - On a CPU tensor it runs ``signed_chol_inv_reference``, the kernel's
   plain PyTorch version: the same column recurrence, batched over B.
 
@@ -65,11 +62,11 @@ def cluster_size(n: int, dtype: torch.dtype) -> int:
     return c
 
 
-# Kernel launches made by ``signed_cholesky_with_inverse`` and ``_launch``
-# (never by the plain version or the blocked route), per dtype, per route
-# and, on the resident route, per cluster size.
+# Kernel launches made by ``signed_cholesky_with_inverse`` (never by the
+# plain version or the blocked route), per dtype, per route and per cluster
+# size.
 launches_by_dtype = {"float32": 0, "float64": 0}
-launches_by_route = {"resident": 0, "streamed": 0}
+launches_by_route = {"resident": 0}
 launches_by_cluster = {c: 0 for c in range(1, MAX_CLUSTER + 1)}
 
 
@@ -118,10 +115,9 @@ def signed_chol_inv_reference(K: torch.Tensor, signs: torch.Tensor):
     return torch.tril(W), Linv
 
 
-def _launch(K: torch.Tensor, signs: torch.Tensor, route: str):
-    """Launch the kernel of ``route`` ("resident" or "streamed") on a CUDA
-    batch; the resident kernel with ``cluster_size(n, dtype)`` blocks per
-    matrix."""
+def _launch(K: torch.Tensor, signs: torch.Tensor):
+    """Launch the resident kernel on a CUDA batch, with ``cluster_size(n,
+    dtype)`` blocks per matrix."""
     from ._build import library
 
     if not K.is_contiguous():
@@ -131,20 +127,16 @@ def _launch(K: torch.Tensor, signs: torch.Tensor, route: str):
     L = torch.empty_like(K)
     Linv = torch.empty_like(K)
     suffix = "f32" if K.dtype == torch.float32 else "f64"
-    fn = getattr(library(), f"piqp_signed_chol_inv_{route}_{suffix}")
-    args = [K.data_ptr(), s.data_ptr(), L.data_ptr(), Linv.data_ptr(), B, n]
-    if route == "resident":
-        cluster = cluster_size(n, K.dtype)
-        args.append(cluster)
+    fn = getattr(library(), f"piqp_signed_chol_inv_resident_{suffix}")
+    cluster = cluster_size(n, K.dtype)
     with torch.cuda.device(K.device):
-        args.append(torch.cuda.current_stream(K.device).cuda_stream)
-        rc = fn(*args)
+        stream = torch.cuda.current_stream(K.device).cuda_stream
+        rc = fn(K.data_ptr(), s.data_ptr(), L.data_ptr(), Linv.data_ptr(), B, n, cluster, stream)
     if rc != 0:
-        raise RuntimeError(f"signed_chol_inv {route} kernel launch failed with cudaError_t {rc}")
+        raise RuntimeError(f"signed_chol_inv resident kernel launch failed with cudaError_t {rc}")
     launches_by_dtype[str(K.dtype).removeprefix("torch.")] += 1
-    launches_by_route[route] += 1
-    if route == "resident":
-        launches_by_cluster[cluster] += 1
+    launches_by_route["resident"] += 1
+    launches_by_cluster[cluster] += 1
     return L, Linv
 
 
@@ -162,7 +154,7 @@ def signed_cholesky_with_inverse(K: torch.Tensor, signs: torch.Tensor):
         raise ValueError(f"signed_cholesky_with_inverse runs on cuda or cpu, not {K.device}")
     if kernel_route(K.shape[-1], K.dtype) == "blocked":
         return ldlt.blocked_inverse(K, signs.to(K.dtype))
-    return _launch(K, signs, "resident")
+    return _launch(K, signs)
 
 
 def signed_inv_solve(Linv: torch.Tensor, signs: torch.Tensor, v: torch.Tensor):

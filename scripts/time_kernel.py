@@ -1,20 +1,26 @@
-"""Time one resident factor-with-inverse kernel of one or more checkouts of
-this repository on one CUDA card, each checkout in a fresh process, in the
-order given:
+"""Time one kernel of one or more checkouts of this repository on one CUDA
+card, each checkout in a fresh process, in the order given:
 
-    python3 scripts/time_kernel.py K1|K3 ROOT [ROOT ...]
+    python3 scripts/time_kernel.py K1|K2|K3 ROOT [ROOT ...]
 
-K1 is ``ops/chol_inv.cholesky_with_inverse`` at B = 1024, n = 128; K3 is
+K1 is ``ops/chol_inv.cholesky_with_inverse`` at B = 1024, n = 128; K2 is
+``ops/chol_inv.cholesky_inverse_apply`` at the multistage fleet's first
+cyclic-reduction level, N = 12,800, n = 8, r = 20, and at N = 5,376,
+n = 23, r = 50 (256 problems of T = 43, D = 23, Da = 4); K3 is
 ``ops/signed_chol_inv.signed_cholesky_with_inverse`` at the dense_ldlt
 fleet's B = 256, n = 256 and its float64 batch, B = 64.  Give two versions
 as parent, change, change, parent to compare them within one run.  For each
 ROOT the script imports ``piqp_tpu_torch`` from ROOT, builds its kernels
 there (nvcc seconds, 0 when that checkout's library is up to date), reads
-ptxas's registers and spills of each resident instance of the kernel, and,
-in float32 and float64 at each shape, holds L and Linv against the plain
-version with chip_smoke.py's tolerances, then times the wrapper with
-chip_smoke.py's looped CUDA events.  It prints one JSON line per ROOT and
-exits nonzero if any ROOT fails or no card is there.
+ptxas's registers and spills of each instance of the kernel, and, in
+float32 and float64 at each shape, holds the outputs against the plain
+version with chip_smoke.py's tolerances, then times the wrapper: K1 and K3
+with chip_smoke.py's looped CUDA events (``ms``); K2, whose launch is
+shorter than the wrapper's host work, by its device time, chip_smoke.py's
+CUDA graph of launches, with the inputs warm in L2 (``ms``) and rotated
+through 8 sets larger than the L2 (``ms_cold_l2``), and looped
+(``looped_ms``).  It prints one JSON line per ROOT and exits nonzero if
+any ROOT fails or no card is there.
 """
 
 from __future__ import annotations
@@ -30,16 +36,22 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 
 # per kernel: its module in piqp_tpu_torch.ops, wrapper, plain version,
-# chip_smoke.py's batch maker, the (B, n) shapes timed, and the kernel
-# whose ptxas instances are read (the digit is the mangled name's length)
+# chip_smoke.py's input maker, the shapes timed (its arguments after the
+# dtype) and the kernel whose ptxas instances are read (the digit is the
+# mangled name's length)
 KERNELS = {
     "K1": dict(module="chol_inv", wrapper="cholesky_with_inverse",
                reference="chol_inv_reference", batch="_spd_batch", shapes=[(1024, 128)],
                instance=r"\dchol_inv_resident_kernel"),
+    "K2": dict(module="chol_inv", wrapper="cholesky_inverse_apply",
+               reference="chol_inv_apply_reference", batch="_apply_batch",
+               shapes=[(12800, 8, 20), (5376, 23, 50)], instance=r"\dchol_inv_apply_small_kernel"),
     "K3": dict(module="signed_chol_inv", wrapper="signed_cholesky_with_inverse",
                reference="signed_chol_inv_reference", batch="_quasidef_batch",
                shapes=[(256, 256), (64, 256)], instance=r"\dsigned_chol_inv_resident_kernel"),
 }
+# rotated input sets of K2's cold-L2 timing
+COLD_SETS = 8
 
 
 def _instances(log: str, instance: str) -> list:
@@ -77,21 +89,38 @@ def _child(kernel: str, root: Path) -> dict:
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).removeprefix("torch.")
         tol = smoke.K1_TOL[name]
-        for B, n in spec["shapes"]:
-            args = batch(torch, B, n, dtype, seed=7)
+        for shape in spec["shapes"]:
+            args = batch(torch, *shape, dtype, seed=7)
             args = args if isinstance(args, tuple) else (args,)
-            L, Linv = wrapper(*args)
+            got = wrapper(*args)
             torch.cuda.synchronize()
-            L_ref, Linv_ref = reference(*args)
-            err_L = (L - L_ref).abs().max().item()
-            err_Li = (Linv - Linv_ref).abs().max().item()
-            if not (err_L <= tol * max(1.0, L_ref.abs().max().item())
-                    and err_Li <= tol * Linv_ref.abs().max().item()):
-                raise AssertionError(f"{root} {kernel} {name} B={B} n={n}: |L-L_ref| "
-                                     f"{err_L:.3e} |Linv-Linv_ref| {err_Li:.3e} beyond the "
-                                     f"tolerance")
-            result[f"{name} B={B} n={n}"] = dict(
-                ms=smoke._time_ms(torch, lambda: wrapper(*args)), err_L=err_L, err_Linv=err_Li)
+            want = reference(*args)
+            errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+            scales = [max(1.0, want[0].abs().max().item()), want[1].abs().max().item()]
+            rtols = [tol, tol]
+            if kernel == "K2":
+                scales.append(want[2].abs().max().item())
+                rtols.append(smoke.K2_Y_RTOL[name])
+            if not all(e <= t * s for e, t, s in zip(errs, rtols, scales)):
+                raise AssertionError(f"{root} {kernel} {name} {shape}: errors {errs} of "
+                                     f"(L, Linv, Y) beyond the tolerance")
+            labels = ("B", "n") if len(shape) == 2 else ("N", "n", "r")
+            key = f"{name} " + " ".join(f"{a}={v}" for a, v in zip(labels, shape))
+            entry = dict(err_L=errs[0], err_Linv=errs[1])
+            if kernel == "K2":
+                sets = [batch(torch, *shape, dtype, seed=100 + i) for i in range(COLD_SETS)]
+                entry.update(
+                    err_Y=errs[2],
+                    # a checkout before the small kernel has the general one alone
+                    route=(mod.apply_kernel_route(shape[1], dtype, shape[2])
+                           if hasattr(mod, "apply_kernel_route") else "general"),
+                    ms=smoke._graph_ms(torch, [lambda: wrapper(*args)]),
+                    ms_cold_l2=smoke._graph_ms(torch, [lambda a=a: wrapper(*a) for a in sets]),
+                    looped_ms=smoke._time_ms(torch, lambda: wrapper(*args)))
+                del sets
+            else:
+                entry["ms"] = smoke._time_ms(torch, lambda: wrapper(*args))
+            result[key] = entry
     return result
 
 

@@ -144,7 +144,7 @@ def test_resident_layout_matches_the_kernel_source(dtype):
 # K2: factor + inverse + apply
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n,r", [(4, 12), (8, 20), (33, 70)])
+@pytest.mark.parametrize("n,r", [(4, 12), (8, 20), (23, 50), (32, 68), (33, 70)])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_apply_reference_matches_jax_kernel(n, r, dtype):
     K = _spd_batch(5, n, seed=n + r)
@@ -182,6 +182,81 @@ def test_apply_indefinite_block_gives_nonfinite_for_that_block_only():
 def test_apply_wrapper_rejects_bad_input(K, RHS):
     with pytest.raises((TypeError, ValueError)):
         chol_inv.cholesky_inverse_apply(K, RHS)
+
+
+@pytest.mark.parametrize(
+    "n,r,dtype,route",
+    [
+        (1, 6, torch.float32, "small"),
+        (1, 6, torch.float64, "small"),
+        (32, 68, torch.float32, "small"),
+        (32, 68, torch.float64, "small"),
+        (33, 70, torch.float32, "general"),
+        (33, 70, torch.float64, "general"),
+        (256, 516, torch.float32, "general"),
+        (256, 516, torch.float64, "general"),
+        (257, 518, torch.float32, "library"),
+        (257, 518, torch.float64, "library"),
+        # one warp's right-hand blocks too wide for shared memory
+        (32, 1800, torch.float32, "general"),
+        (32, 900, torch.float64, "general"),
+    ],
+)
+def test_apply_kernel_route(n, r, dtype, route):
+    assert chol_inv.apply_kernel_route(n, dtype, r) == route
+
+
+@pytest.mark.parametrize("n,lanes", [(1, 4), (4, 4), (5, 8), (8, 8), (9, 16), (16, 16),
+                                     (17, 32), (32, 32)])
+def test_group_lanes(n, lanes):
+    assert chol_inv.group_lanes(n) == lanes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_small_layout_matches_the_kernel_source(dtype):
+    """The small K2 kernel's block size, largest n, per-block limit and
+    shared-memory formula are the ones the route's Python mirror uses, so
+    every shape routed to it launches with the placement the mirror names."""
+    src = (Path(chol_inv.__file__).parents[1] / "csrc" / "chol_inv_apply_small.cu").read_text()
+    threads = int(re.search(r"constexpr int kSmallThreads = (\d+);", src).group(1))
+    max_n = int(re.search(r"constexpr int kMaxSmallN = (\d+);", src).group(1))
+    limit = int(re.search(r"constexpr int kSmemPerBlock = (\d+);", src).group(1))
+    expr = re.search(
+        r"constexpr int small_smem_bytes\(int n, int r, int elem, int m\) \{\s*return ([^;]+);\s*\}",
+        src).group(1).replace("/", "//").replace("\n", " ")  # C's integer division
+    assert (threads, max_n, limit) == (
+        chol_inv.SMALL_THREADS, chol_inv.SMALL_MAX_N, chol_inv.SMEM_PER_BLOCK)
+    names = {"group_lanes": chol_inv.group_lanes, "step_cols": chol_inv.step_cols}
+    size = dtype.itemsize
+    for n in range(1, max_n + 1):
+        for r in (0, 1, 3, 4, 2 * n + 4, 50, 68, 700, 2000):
+            assert eval(expr, names, {"n": n, "r": r, "elem": size, "m": 3}) == \
+                chol_inv.small_smem_bytes(n, r, size, 3)
+            # the launcher's loop: halve from kSmallThreads while the block
+            # does not fit, 0 when one warp's does not
+            t = threads
+            while t > 32 and chol_inv.small_smem_bytes(
+                    n, r, size, t // chol_inv.group_lanes(n)) > limit:
+                t //= 2
+            fits = chol_inv.small_smem_bytes(n, r, size, t // chol_inv.group_lanes(n)) <= limit
+            assert chol_inv.small_threads(n, r, size) == (t if fits else 0)
+
+
+@pytest.mark.parametrize(
+    "n,r,dtype,threads,smem,per_sm",
+    [
+        (8, 20, torch.float32, 64, 9_216, 22),
+        (8, 20, torch.float64, 64, 16_384, 13),
+        (23, 50, torch.float32, 64, 14_464, 15),
+        (23, 50, torch.float64, 64, 28_912, 7),
+    ],
+)
+def test_small_placement_at_the_timed_shapes(n, r, dtype, threads, smem, per_sm):
+    """The placements the kernel's note states: threads, shared memory a
+    block and blocks an SM (228 KB, 1 KB of it reserved per block)."""
+    t = chol_inv.small_threads(n, r, dtype.itemsize)
+    got = chol_inv.small_smem_bytes(n, r, dtype.itemsize, t // chol_inv.group_lanes(n))
+    assert (t, got, 233_472 // (got + 1024)) == (threads, smem, per_sm)
 
 
 # ---------------------------------------------------------------------------
@@ -269,11 +344,14 @@ def test_signed_wrapper_rejects_bad_input(K, s):
 
 
 def test_no_k2_k3_launches_on_cpu():
-    counts = (chol_inv.apply_launches_by_dtype, signed_chol_inv.launches_by_dtype,
-              signed_chol_inv.launches_by_route, signed_chol_inv.launches_by_cluster)
+    counts = (chol_inv.apply_launches_by_dtype, chol_inv.apply_launches_by_route,
+              signed_chol_inv.launches_by_dtype, signed_chol_inv.launches_by_route,
+              signed_chol_inv.launches_by_cluster)
     before = tuple(dict(c) for c in counts)
     for dt in (torch.float32, torch.float64):
-        for n in (6, 240):  # a one-block and a clustered resident shape
+        # K2 on its small and general routes; K3 on a one-block and a
+        # clustered resident shape
+        for n in (6, 240):
             K = torch.as_tensor(_spd_batch(2, n, 0), dtype=dt)
             chol_inv.cholesky_inverse_apply(K, torch.ones((2, n, 4), dtype=dt))
             signed_chol_inv.signed_cholesky_with_inverse(K, torch.ones(n, dtype=dt))
