@@ -61,7 +61,27 @@ Phases:
   8. SparseSolver: one T = 100 problem as scipy CSC through structure
      detection (the port's C++ library), solve, update(c), warm solve;
   9. the first 4 problems of phases 6 and 7 again on the CPU, and a profile
-     of one warm round of each new fleet.
+     of one warm round of each new fleet;
+ 10. dense differentiable fleet: 256 QPs at n = 128, p = 64, m = 64 with a
+     planted nondegenerate active set (inverse KKT, as tests/test_diff.py
+     builds them), float64 at eps_abs = 1e-10, ``solve_qp_diff`` and the
+     backward pass of sum(v . x): every forward SOLVED, central finite
+     differences in c, b, h_u and P for problems 0-3, their gradients
+     against the port on the CPU, K1 launches in the forward (all
+     resident), forward and backward ms;
+ 11. stage differentiable fleet: the phase-7 fleet in float64 through
+     ``solve_qp_diff``, gradients of sum(x^2) in c and Pd, finite
+     differences and the CPU port for problems 0-3, K2 launches in the
+     backward alone (the adjoint factor; all small), forward and backward
+     ms;
+ 12. SQP rounds and compaction on the phase-3 fleet (mixed precision):
+     ``solve_batch_sqp`` (4 rounds from the cold result) against 4
+     sequential warm ``solve_batch`` rounds, ``solve_batch_compact``
+     (phase 1 of 4 iterations) against the one-pass warm round, host KKT
+     checks, wall times and effective iterations per problem;
+ 13. ``compute_timings`` on a ``DenseSolver`` on the card (six time
+     fields filled), and ``SparseSolver`` with ``kkt_solver=sparse_host``
+     at n = 600 against the card's dense solve of the same problem.
 The line before the last lists the kernels as JSON; the last line is the
 device summary.
 """
@@ -111,6 +131,26 @@ K3_SHAPES = [(5, 64), (5, 128), (5, 168), (5, 169), (5, 192), (5, 224), (5, 225)
 # the float64 dense_ldlt batch
 LDLT_B64 = 64
 OPT_TOL = 1e-6
+# the differentiable fleets: float64 solved tight, gradients of problems
+# 0-3 held to central differences (step 1e-6) and to the port on the CPU.
+# The duality-gap limits are tightened with the residual ones: at the
+# default 1e-8 the IPM stops with mu ~ 6e-10, an active row with z ~ 5e-4
+# keeps s ~ mu/z ~ 1e-6, and the implicit derivative, which weighs that
+# row by z/s, then differs from central differences by up to 4e-3
+# (multistage problem 0 on the CPU).  The stage fleet is held to
+# tests/test_diff.py's multistage tolerance; the dense one to rel 1e-3,
+# not the n = 6 test's 2e-4: the slack floor (diff.SLACK_FLOOR) caps an
+# active row's weight at z/1e-8 ~ 1.5e8, and at n = 128 that finite weight
+# moves the implicit derivative up to 3e-4 from the active-set derivative,
+# which central differences reproduce (the JAX package's gradient moves
+# the same: 0.0194109 against 0.0194051 for problem 2 along P; an exact
+# dense solve of the same saddle system gives the port's value)
+DIFF_B, DIFF_ACTIVE, DIFF_BOXES = 256, 16, 8
+DIFF_TIGHT = dict(eps_abs=1e-10, eps_rel=1e-11, eps_duality_gap_abs=1e-12,
+                  eps_duality_gap_rel=1e-13)
+FD_REL, FD_ABS, FD_STAGE_REL = 1e-3, 5e-6, 5e-4
+GRAD_XCHECK_REL = 1e-6
+SQP_ROUNDS = 4
 # x of a mixed-precision solve on the CPU vs the card: the float32 phase
 # takes different (equally optimal) trajectories on the two devices; on
 # these problems the JAX package's own mixed run and the port's CPU run
@@ -559,6 +599,315 @@ def _profile_round(torch, label, fn, unprofiled_s, smi, kernel_names=()):
               f"{e.count:6d} launches  {e.key[:80]}")
 
 
+def _sync(torch, dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _nondegenerate_qp(n, p, m, seed, active=DIFF_ACTIVE, boxes=DIFF_BOXES):
+    """A QP with a planted, strictly complementary, nondegenerate active
+    set, built by inverse KKT as tests/test_diff.py builds its problems:
+    x*, y*, the duals and the active constraints are chosen and c is
+    backed out.  ``active`` rows of G sit at their upper bound and as many
+    at their lower one, the rest have two loose bounds; ``boxes`` boxes
+    are active above, as many below, and as many are loose.  Returns the
+    problem and x*."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((n, n))
+    P = M @ M.T + n * np.eye(n)
+    A = rng.standard_normal((p, n))
+    G = rng.standard_normal((m, n))
+    xs = rng.standard_normal(n)
+    ys = rng.standard_normal(p)
+    Gx = G @ xs
+    h_l, h_u = Gx - 1.0, Gx + 1.0
+    z_l, z_u = np.zeros(m), np.zeros(m)
+    up, lo = slice(0, active), slice(active, 2 * active)
+    h_l[up], h_u[up], z_u[up] = -np.inf, Gx[up], rng.uniform(0.5, 1.5, active)
+    h_l[lo], h_u[lo], z_l[lo] = Gx[lo], np.inf, rng.uniform(0.5, 1.5, active)
+    x_l, x_u = np.full(n, -np.inf), np.full(n, np.inf)
+    z_bl, z_bu = np.zeros(n), np.zeros(n)
+    up, lo, loose = slice(0, boxes), slice(boxes, 2 * boxes), slice(2 * boxes, 3 * boxes)
+    x_u[up], z_bu[up] = xs[up], rng.uniform(0.5, 1.5, boxes)
+    x_l[lo], z_bl[lo] = xs[lo], rng.uniform(0.5, 1.5, boxes)
+    x_l[loose], x_u[loose] = xs[loose] - 2.0, xs[loose] + 2.0
+    c = -(P @ xs + A.T @ ys + G.T @ (z_u - z_l) + z_bu - z_bl)
+    return dict(P=P, c=c, A=A, b=A @ xs, G=G, h_l=h_l, h_u=h_u, x_l=x_l, x_u=x_u), xs
+
+
+def _diff_grads(torch, data, settings, loss_of, fields, dev):
+    """solve_qp_diff of ``data`` and the backward pass of
+    ``loss_of(w).sum()``: (w, gradients by field, forward s, backward s,
+    K1 and K2 launches by route in the forward, K2's in the backward)."""
+    import dataclasses
+
+    from piqp_tpu_torch import solve_qp_diff
+    from piqp_tpu_torch.ops import chol_inv
+
+    leaves = {k: getattr(data, k).detach().clone().requires_grad_() for k in fields}
+    _reset_counts()
+    _sync(torch, dev)
+    t = time.perf_counter()
+    w = solve_qp_diff(dataclasses.replace(data, **leaves), settings, True)
+    _sync(torch, dev)
+    fwd_s = time.perf_counter() - t
+    fwd = (dict(chol_inv.launches_by_route), dict(chol_inv.apply_launches_by_route))
+    _reset_counts()
+    t = time.perf_counter()
+    loss_of(w).sum().backward()
+    _sync(torch, dev)
+    bwd_s = time.perf_counter() - t
+    bwd = dict(chol_inv.apply_launches_by_route)
+    return w, {k: v.grad for k, v in leaves.items()}, fwd_s, bwd_s, fwd, bwd
+
+
+def _fd_check(torch, label, data, settings, loss_of, grads, directions, rel) -> None:
+    """Central differences (step 1e-6) of the per-problem loss along each
+    direction against the gradients, for every problem of ``data``: |fd -
+    g.D| <= max(rel |g.D|, FD_ABS)."""
+    import dataclasses
+
+    from piqp_tpu_torch import solve_qp_diff
+
+    eps = 1e-6
+    for field, D in directions.items():
+        f = getattr(data, field)
+        with torch.no_grad():
+            up = loss_of(solve_qp_diff(dataclasses.replace(data, **{field: f + eps * D}),
+                                       settings, True))
+            dn = loss_of(solve_qp_diff(dataclasses.replace(data, **{field: f - eps * D}),
+                                       settings, True))
+        num = ((up - dn) / (2 * eps)).cpu().numpy()
+        ana = (grads[field][:D.shape[0]] * D).flatten(1).sum(1).cpu().numpy()
+        err = np.abs(num - ana)
+        print(f"[{label}] finite differences along {field}: analytic "
+              f"{np.array2string(ana, precision=6)}, central {np.array2string(num, precision=6)}")
+        if not np.all(err <= np.maximum(rel * np.abs(ana), FD_ABS)):
+            raise AssertionError(f"{label}: gradient in {field} disagrees with central "
+                                 f"differences ({err.max():.3e})")
+
+
+def _grad_xcheck(label, grads, cpu_grads) -> None:
+    """Gradients of the first problems on the card against the port on the
+    CPU, each field relative to its largest entry."""
+    worst = 0.0
+    for k, g in cpu_grads.items():
+        err = (grads[k][:g.shape[0]].cpu() - g).abs().max().item()
+        rel = err / max(g.abs().max().item(), 1e-300)
+        worst = max(worst, rel)
+        if not rel <= GRAD_XCHECK_REL:
+            raise AssertionError(f"{label}: gradient in {k} on the card differs from the CPU "
+                                 f"by {rel:.3e} of its largest entry")
+    print(f"[{label}] gradients of problems 0-{g.shape[0] - 1} on the card against the CPU: "
+          f"worst relative difference {worst:.3e} (limit {GRAD_XCHECK_REL:.0e}) in "
+          f"{', '.join(cpu_grads)}")
+
+
+def _diff_dense_fleet(torch, smi, B=DIFF_B, dev="cuda") -> dict:
+    """Phase 10: solve_qp_diff on B planted QPs at the main path's width
+    and the backward pass of sum(v . x); returns times and launches."""
+    import dataclasses
+
+    from piqp_tpu_torch import Settings, prepare_batch, solve_batch
+    from piqp_tpu_torch.types import index, to_device
+
+    tight = Settings(**DIFF_TIGHT)
+    made = [_nondegenerate_qp(MAIN_N, MAIN_P, MAIN_M, seed=3000 + i) for i in range(B)]
+    probs = [prob for prob, _ in made]
+    data = prepare_batch(probs, device=dev)
+    v = torch.as_tensor(np.random.default_rng(3100).standard_normal((B, MAIN_N)), device=dev)
+
+    def loss_of(w):
+        return (v[:w.x.shape[0]].to(w.x.device) * w.x).sum(-1)
+
+    fields = ("P", "c", "A", "b", "G", "h_l", "h_u", "x_l", "x_u")
+    w, g, fwd_s, bwd_s, (k1, _), _ = _diff_grads(torch, data, tight, loss_of, fields, dev)
+    ref = solve_batch(data, dataclasses.replace(tight, refine_mu_factor=0.0))
+    viol = _check_round(probs, ref, "dense differentiable forward")
+    dx = (w.x - ref.x).abs().max().item()
+    dxs = max(np.abs(w.x[i].detach().cpu().numpy() - xs).max() for i, (_, xs) in enumerate(made))
+    print(f"[diff dense] B={B} n={MAIN_N} p={MAIN_P} m={MAIN_M} ({2 * DIFF_ACTIVE} active rows, "
+          f"{2 * DIFF_BOXES} active boxes a problem), float64 eps_abs="
+          f"{DIFF_TIGHT['eps_abs']:.0e}: {B}/{B} SOLVED, worst KKT {viol:.2e}, |x - x_solve| "
+          f"{dx:.2e}, |x - x*| {dxs:.2e}, iterations max {int(ref.info.iter.max())}")
+    if not (dx <= 1e-9 and dxs <= 1e-6):
+        raise AssertionError("the differentiable forward disagrees with the solve or x*")
+    rng = np.random.default_rng(3200)
+    sub = index(data, slice(0, 4))
+    M = rng.standard_normal((4, MAIN_N, MAIN_N))
+    dirs = {"c": rng.standard_normal((4, MAIN_N)), "b": rng.standard_normal((4, MAIN_P)),
+            "h_u": rng.standard_normal((4, MAIN_M)) * sub.hu_mask.cpu().numpy(),
+            "P": M + M.transpose(0, 2, 1)}
+    _fd_check(torch, "diff dense", sub, tight, loss_of, g,
+                   {k: torch.as_tensor(D, device=dev) for k, D in dirs.items()}, FD_REL)
+    _, gc, *_ = _diff_grads(torch, to_device(sub, "cpu"), tight, loss_of, fields, "cpu")
+    _grad_xcheck("diff dense", g, gc)
+    print(f"[diff dense] B={B}: forward {fwd_s * 1e3:.1f} ms, backward {bwd_s * 1e3:.1f} ms "
+          f"(host clock, synchronized), K1 launches in the forward by route {k1}; {smi}")
+    return k1
+
+
+def _diff_stage_fleet(torch, smi, data, dev="cuda") -> dict:
+    """Phase 11: solve_qp_diff on a stage fleet and the backward pass of
+    sum(x^2) in c and Pd; returns times and launches."""
+    import dataclasses
+
+    from piqp_tpu_torch import Settings, solve_batch
+    from piqp_tpu_torch.types import index, to_device
+
+    tight = Settings(**DIFF_TIGHT)
+    B = data.B
+
+    def loss_of(w):
+        return (w.x ** 2).sum(-1)
+
+    fields = ("c", "Pd")
+    w, g, fwd_s, bwd_s, (_, k2f), k2b = _diff_grads(torch, data, tight, loss_of, fields, dev)
+    ref = solve_batch(data, dataclasses.replace(tight, refine_mu_factor=0.0))
+    status = ref.info.status.cpu()
+    dx = (w.x - ref.x).abs().max().item()
+    print(f"[diff stage] B={B} T={data.T} D={data.D} (n={data.n}), float64 eps_abs="
+          f"{DIFF_TIGHT['eps_abs']:.0e}: {int((status == 1).sum())}/{B} SOLVED, |x - x_solve| "
+          f"{dx:.2e}, iterations max {int(ref.info.iter.max())}")
+    if not (bool((status == 1).all()) and dx <= 1e-9):
+        raise AssertionError("the stage differentiable forward did not solve every problem")
+    rng = np.random.default_rng(3300)
+    sub = index(data, slice(0, 4))
+    Draw = rng.standard_normal(tuple(sub.Pd.shape))
+    dirs = {"c": rng.standard_normal(tuple(sub.c.shape)),
+            "Pd": (Draw + np.swapaxes(Draw, -1, -2)) / 2}
+    _fd_check(torch, "diff stage", sub, tight, loss_of, g,
+                   {k: torch.as_tensor(D, device=dev) for k, D in dirs.items()}, FD_STAGE_REL)
+    _, gc, *_ = _diff_grads(torch, to_device(sub, "cpu"), tight, loss_of, fields, "cpu")
+    _grad_xcheck("diff stage", g, gc)
+    print(f"[diff stage] B={B}: forward {fwd_s * 1e3:.1f} ms, backward {bwd_s * 1e3:.1f} ms "
+          f"(host clock, synchronized); K2 launches by route in the forward {k2f}, in the "
+          f"backward alone {k2b}; {smi}")
+    return k2b
+
+
+def _sqp_and_compaction(torch, smi, problems, moved, data, data_w, cold, warm_pt, settings):
+    """Phase 12: SQP rounds against sequential warm rounds, compaction
+    against the one-pass warm round, on the main path's fleet."""
+    import dataclasses
+
+    from piqp_tpu_torch import (
+        solve_batch, solve_batch_compact, solve_batch_sqp, warm_from_result,
+    )
+    from piqp_tpu_torch.ops import chol_inv
+
+    B = data.B
+    _reset_counts()
+    (wf, st, it), sqp_s = _timed(torch, lambda: solve_batch_sqp(
+        data, settings, rounds=SQP_ROUNDS, warm=cold))
+    k1 = dict(chol_inv.launches_by_route)
+    if not bool((st == 1).all()):
+        raise AssertionError(f"SQP rounds: statuses {st[st != 1][:5].tolist()} not SOLVED")
+    scale = 1.0 + 0.01 * SQP_ROUNDS
+    last = [dict(p, c=p["c"] * scale) for p in problems]
+    host = {k: getattr(wf, k).double().cpu().numpy()
+            for k in ("x", "y", "z_l", "z_u", "z_bl", "z_bu")}
+    viol = max(_optimality(prob, *(host[k][i] for k in ("x", "y", "z_l", "z_u", "z_bl", "z_bu")))
+               for i, prob in enumerate(last))
+    if not viol <= OPT_TOL:
+        raise AssertionError(f"SQP last round: KKT violation {viol:.3e}")
+
+    def sequential():
+        w = warm_from_result(cold)
+        for r in range(SQP_ROUNDS):
+            res = solve_batch(dataclasses.replace(data, c=data.c * (1.0 + 0.01 * (r + 1))),
+                              settings, warm=w)
+            w = warm_from_result(res)
+        return w
+
+    seq, seq_s = _timed(torch, sequential)
+    dx = (wf.x - seq.x).abs().max().item()
+    its = it.cpu().numpy()
+    print(f"[sqp] B={B} {SQP_ROUNDS} rounds, all SOLVED, last round worst KKT {viol:.2e}, "
+          f"iterations per round median {np.median(its, axis=0).tolist()} max "
+          f"{its.max(axis=0).tolist()}, |x - x_sequential| {dx:.2e} (limit "
+          f"{XCHECK_MIXED_TOL:.0e}), K1 launches by route {k1}")
+    print(f"[sqp] B={B}: solve_batch_sqp {sqp_s * 1e3 / SQP_ROUNDS:.1f} ms a round, sequential "
+          f"solve_batch rounds {seq_s * 1e3 / SQP_ROUNDS:.1f} ms a round (host clock); {smi}")
+    if not dx <= XCHECK_MIXED_TOL:
+        raise AssertionError("SQP rounds disagree with sequential warm rounds")
+
+    one, one_s = _timed(torch, lambda: solve_batch(data_w, settings, warm=warm_pt))
+    _reset_counts()
+    rc, rc_s = _timed(torch, lambda: solve_batch_compact(data_w, settings, warm=cold,
+                                                         phase1_iters=4))
+    k1c = dict(chol_inv.launches_by_route)
+    if rc.info.status.tolist() != one.info.status.tolist():
+        raise AssertionError("compaction statuses differ from the one-pass warm round")
+    viol_c = _check_round(moved, rc, "compaction")
+    it1, itc = one.info.iter.cpu().numpy(), rc.info.iter.cpu().numpy()
+    stalled = itc > 4
+    eff = (4 * B + int(stalled.sum()) * int((itc[stalled] - 4).max(initial=0))) / B
+    print(f"[compact] B={B} warm, phase 1 of 4 iterations: {int(stalled.sum())} stragglers "
+          f"re-solved, all SOLVED, worst KKT {viol_c:.2e}, K1 launches by route {k1c}; "
+          f"iterations per problem mean {itc.mean():.2f} (one pass {it1.mean():.2f}), "
+          f"lockstep iterations per problem {eff:.2f} (one pass {it1.max()})")
+    print(f"[compact] B={B}: solve_batch_compact {rc_s * 1e3:.1f} ms, one-pass warm round "
+          f"{one_s * 1e3:.1f} ms (host clock); {smi}")
+    # the budget the JAX package's docstring recommends for a repeated
+    # workload: the one pass's 95th percentile of iterations, plus one
+    tuned = int(np.percentile(it1, 95)) + 1
+    rt, rt_s = _timed(torch, lambda: solve_batch_compact(data_w, settings, warm=cold,
+                                                         phase1_iters=tuned))
+    if rt.info.status.tolist() != one.info.status.tolist():
+        raise AssertionError("tuned compaction statuses differ from the one-pass warm round")
+    _check_round(moved, rt, "tuned compaction")
+    itt = rt.info.iter.cpu().numpy()
+    k = int((itt > tuned).sum())
+    eff_t = (tuned * B + k * int((itt[itt > tuned] - tuned).max(initial=0))) / B
+    print(f"[compact] B={B} phase 1 of {tuned} iterations (95th percentile + 1): {k} stragglers, "
+          f"all SOLVED, lockstep iterations per problem {eff_t:.2f}, {rt_s * 1e3:.1f} ms "
+          f"(host clock); {smi}")
+    return dict(k1_sqp=k1, k1_compact=k1c)
+
+
+def _timings_and_host_route(torch, smi, problems, moved):
+    """Phase 13: compute_timings on a DenseSolver on the card, and the
+    host sparse route against the card's dense solve."""
+    from piqp_tpu_torch import (
+        DenseSolver, KKTBackend, Settings, SparseSolver, Status, solve_dense,
+    )
+    from piqp_tpu_torch.utils.random import sparse_strongly_convex_qp
+
+    ds = DenseSolver(Settings(compute_timings=True), device="cuda")
+    ds.setup(**problems[0])
+    if ds.solve() != Status.SOLVED:
+        raise AssertionError("DenseSolver with compute_timings did not solve")
+    ds.update(c=moved[0]["c"])
+    if ds.solve(warm_start=True) != Status.SOLVED:
+        raise AssertionError("DenseSolver with compute_timings did not solve the update")
+    names = ("setup_time", "update_time", "solve_time", "kkt_factor_time", "kkt_solve_time",
+             "run_time")
+    t = {k: float(getattr(ds.result.info, k)) for k in names}
+    print(f"[timings] DenseSolver(compute_timings=True) n={MAIN_N} warm solve: "
+          + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in t.items()) + f"; {smi}")
+    if not (all(v > 0 for v in t.values()) and t["run_time"] >= t["solve_time"]):
+        raise AssertionError(f"compute_timings left a time field empty: {t}")
+
+    prob = sparse_strongly_convex_qp(600, 60, 120, seed=600)
+    ss = SparseSolver(Settings(kkt_solver=KKTBackend.sparse_host), device="cuda")
+    ss.setup(**prob)
+    (status, host_s) = _timed(torch, ss.solve)
+    if status != Status.SOLVED or ss._host_raw is None:
+        raise AssertionError("SparseSolver(sparse_host) did not solve on the host route")
+    dense = {k: (v.toarray() if hasattr(v, "toarray") else v) for k, v in prob.items()}
+    ref, dev_s = _timed(torch, lambda: solve_dense(**dense, device="cuda"))
+    x_ref = ref.x.cpu().numpy()
+    dx = float(np.abs(ss.result.x - x_ref).max()) / max(1.0, float(np.abs(x_ref).max()))
+    print(f"[host] SparseSolver(sparse_host) n=600 p=60 m=120: SOLVED in "
+          f"{ss.result.info.iter} iterations, {host_s * 1e3:.1f} ms on the host "
+          f"(kkt factor {ss.result.info.kkt_factor_time * 1e3:.1f} ms); dense solve on the card "
+          f"{int(ref.info.iter)} iterations, {dev_s * 1e3:.1f} ms; |x_host - x_card| {dx:.2e} "
+          f"(limit 1e-6); {smi}")
+    if not (int(ref.info.status) == 1 and dx <= 1e-6):
+        raise AssertionError("the host route disagrees with the card's dense solve")
+
+
 def _xcheck(label, cpu, gpu, mixed: bool) -> None:
     """CPU (plain versions) against the card on the same problems."""
     same_status = cpu.info.status.tolist() == gpu.info.status.cpu().tolist()
@@ -962,6 +1311,22 @@ def main() -> int:
                                ("signed_chol_inv_", k3_launches)):
             if entry["name"].startswith(prefix):
                 entry["launches"] = counts[entry["name"].removeprefix(prefix)]
+
+    # ---- 10-13. differentiable fleets, SQP rounds and compaction, timings
+    # and the host route
+    t_new = time.perf_counter()
+    k1 = _diff_dense_fleet(torch, smi)
+    if not (k1["resident"] > 0 and k1["streamed"] == 0):
+        raise AssertionError(f"dense differentiable forward: K1 launches by route {k1}")
+    k2b = _diff_stage_fleet(torch, smi, data7)
+    if not (k2b["small"] > 0 and k2b["general"] == 0):
+        raise AssertionError(f"stage backward: K2 launches by route {k2b}; the adjoint factor "
+                             f"must launch the small kernel")
+    sq = _sqp_and_compaction(torch, smi, problems, moved, data, data_w, cold, warm_pt, settings)
+    if not (sq["k1_sqp"]["resident"] > 0 and sq["k1_compact"]["resident"] > 0):
+        raise AssertionError("SQP rounds or compaction did not launch K1")
+    _timings_and_host_route(torch, smi, problems, moved)
+    print(f"[phases 10-13] {time.perf_counter() - t_new:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(f"[device] {smi}")

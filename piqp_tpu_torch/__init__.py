@@ -16,8 +16,17 @@ full 3-block KKT matrix (the latter through a hand-written signed-Cholesky
 kernel), and ``multistage`` for block-tridiagonal + arrow problems, given
 as stacked stage blocks (``multistage.StageQPData``) or as a sparse QP
 (``SparseSolver``), whose cyclic reduction runs a hand-written
-factor-inverse-apply kernel.  The JAX package ``piqp_tpu`` is the
-reference, and no module here imports it or JAX.
+factor-inverse-apply kernel.  ``SparseSolver`` also has the JAX
+package's host sparse route (``hostsparse.py``, NumPy/SciPy on the CPU)
+for ``kkt_solver=sparse_host`` and for problems above
+``dense_routing_max_n``.
+
+Around the solve: ``solve_batch_sqp`` runs warm re-solve rounds,
+``solve_batch_compact`` re-solves a batch's stragglers as a smaller
+batch, and ``solve_qp_diff`` / ``qp_layer`` differentiate the solution
+with ``torch.autograd`` (implicit differentiation of the KKT
+conditions).  The JAX package ``piqp_tpu`` is the reference, and no
+module here imports it or JAX.
 """
 
 from .types import (
@@ -33,7 +42,14 @@ from .types import (
     status_to_string,
 )
 from .api import DenseSolver, has_cone, prepare_data, solve_dense, solve_prepared
-from .batch import prepare_batch, solve_batch, warm_from_result
+from .batch import (
+    prepare_batch,
+    solve_batch,
+    solve_batch_compact,
+    solve_batch_sqp,
+    warm_from_result,
+)
+from .diff import qp_layer, solve_qp_diff
 from .multistage import StageQPData, random_multistage_batch, random_multistage_qp
 from .sparse import SparseSolver
 
@@ -59,6 +75,10 @@ __all__ = [
     "solve_dense",
     "solve_prepared",
     "solve_batch",
+    "solve_batch_compact",
+    "solve_batch_sqp",
+    "solve_qp_diff",
+    "qp_layer",
     "random_multistage_batch",
     "random_multistage_qp",
     "warm_from_result",

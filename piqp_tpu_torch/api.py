@@ -20,12 +20,14 @@ Entry points put the data on the CUDA device unless the caller passes
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from . import ruiz, solver
+from . import kkt, ruiz, solver
+from .ops import matvec as ops
 from .types import (
     PIQP_INF,
     BasicVars,
@@ -37,6 +39,7 @@ from .types import (
     Scaling,
     Settings,
     Status,
+    Vars,
     index,
     init_info,
     resolve_device,
@@ -48,17 +51,8 @@ def _route_backend(data, settings: Settings):
     (``piqp_tpu/api.py:42-72``): ``dense_lu`` -> FullKKTQPData,
     ``dense_ldlt`` -> LDLTKKTQPData.  Other data (stage blocks) and the
     other backends keep their type, as in the JAX package: ``multistage``
-    on dense data runs the condensed dense backend.  The host sparse
-    backend is not ported yet."""
-    if settings.kkt_solver == KKTBackend.sparse_host:
-        raise NotImplementedError(
-            "KKTBackend.sparse_host is not ported to piqp_tpu_torch yet "
-            "(ROADMAP Queue 1 item 9)"
-        )
-    if settings.compute_timings:
-        raise NotImplementedError(
-            "Settings.compute_timings is not ported to piqp_tpu_torch yet"
-        )
+    and ``sparse_host`` on dense data run the condensed dense backend (the
+    host sparse route is ``SparseSolver``'s)."""
     if type(data) is QPData:
         cls = {KKTBackend.dense_lu: FullKKTQPData,
                KKTBackend.dense_ldlt: LDLTKKTQPData}.get(settings.kkt_solver)
@@ -303,9 +297,13 @@ class DenseSolver:
         self._result: Optional[Result] = None
         self._batched_result: Optional[Result] = None
         self._cone = True
+        self._first_run = True
+        self._setup_time = 0.0
+        self._update_time = 0.0
 
     def setup(self, P, c, A=None, b=None, G=None, h_l=None, h_u=None,
               x_l=None, x_u=None) -> None:
+        t0 = time.perf_counter()
         self._raw = dict(P=P, c=c, A=A, b=b, G=G, h_l=h_l, h_u=h_u,
                          x_l=x_l, x_u=x_u)
         self._data = prepare_data(
@@ -319,6 +317,8 @@ class DenseSolver:
         hu = _as_1d(h_u, m, np_dtype, np.inf)
         self._dead = ~(hl > -PIQP_INF) & ~(hu < PIQP_INF)
         self._scaling = None
+        self._first_run = True
+        self._setup_time = time.perf_counter() - t0
 
     def _np_dtype(self):
         return np.dtype(self._settings.dtype)
@@ -333,6 +333,7 @@ class DenseSolver:
         and copied to the device."""
         if self._data is None:
             raise RuntimeError("Solver not setup yet")
+        t0 = time.perf_counter()
         updates = dict(P=P, c=c, A=A, b=b, G=G, h_l=h_l, h_u=h_u,
                        x_l=x_l, x_u=x_u)
         for k, v in updates.items():
@@ -391,10 +392,16 @@ class DenseSolver:
         matrices_changed = any(updates[k] is not None for k in ("P", "A", "G"))
         if matrices_changed and not self._settings.preconditioner_reuse_on_update:
             self._scaling = None  # recompute Ruiz on the next solve
+        self._update_time = time.perf_counter() - t0
 
     def solve(self, warm_start: bool = False) -> Status:
         """Solve the current problem.  ``warm_start=True`` seeds the IPM
-        from the previous solve's iterates (x, y, z_*)."""
+        from the previous solve's iterates (x, y, z_*).
+
+        With ``Settings.compute_timings`` the result's info carries the
+        set-up, update, solve and run times from the host clock, and
+        estimates of the cumulative KKT factor and solve times
+        (``_measure_kkt_times``)."""
         if self._data is None:
             raise RuntimeError("Solver not setup yet")
         if not self._settings.verify():
@@ -409,6 +416,7 @@ class DenseSolver:
         if warm_start and self._batched_result is not None:
             warm = _warm_vars(self._batched_result)
 
+        t0 = time.perf_counter()
         if self._scaling is None or not self._settings.preconditioner_reuse_on_update:
             result, sc = _solve_fresh(data, self._settings, self._cone, warm)
             self._scaling = sc
@@ -416,9 +424,23 @@ class DenseSolver:
             result = _solve_reuse(
                 data, self._scaling, self._settings, self._cone, warm
             )
+        status = Status(int(result.info.status[0]))  # waits for the device
+        solve_time = time.perf_counter() - t0
+        if self._settings.compute_timings:
+            t_factor, t_solve = _measure_kkt_times(
+                data, self._settings, int(result.info.iter[0]),
+                int(result.info.factor_retires[0]),
+            )
+            result = _with_timings(
+                result, setup_time=self._setup_time,
+                update_time=self._update_time, solve_time=solve_time,
+                kkt_factor_time=t_factor, kkt_solve_time=t_solve,
+                run_time=(self._setup_time if self._first_run
+                          else self._update_time) + solve_time,
+            )
+        self._first_run = False
         self._batched_result = result
         self._result = index(result, 0)
-        status = Status(int(self._result.info.status))
         if self._settings.verbose:
             print(f"\nstatus:               {status.name.lower()}")
             print(f"number of iterations: {int(self._result.info.iter)}")
@@ -445,6 +467,61 @@ class DenseSolver:
         if self._result is None:
             raise RuntimeError("No solve has been performed yet")
         return self._result
+
+
+def _with_timings(result: Result, **times: float) -> Result:
+    """``result`` with the named time fields of its info set to the given
+    seconds for every problem."""
+    info = result.info
+    return dataclasses.replace(result, info=dataclasses.replace(info, **{
+        k: torch.full_like(getattr(info, k), v) for k, v in times.items()
+    }))
+
+
+def _elapsed(fn, device: torch.device) -> float:
+    """Seconds of one call of ``fn`` after a warm-up call: CUDA events
+    around it on the card, the host clock on the CPU."""
+    fn()
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop) / 1e3
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def _measure_kkt_times(data, settings: Settings, iters: int, retries: int):
+    """Estimates of the cumulative KKT factor and solve time of a solve
+    (results.hpp:87-88), as the JAX package makes them
+    (``piqp_tpu/api.py:560-603``): one factorization and one KKT solve of a
+    cold-start state, each timed once after a warm-up call, scaled by the
+    run's counts, iters + 1 + retries factorizations and 2 iters + 1 KKT
+    solves.  They are estimates, not measurements of the solve: the probe
+    runs outside the IPM loop, so the two need not sum to ``solve_time``.
+    Nothing is timed inside the loop itself."""
+    mixed = bool(settings.mixed_precision)
+    B, dt, dev = data.B, data.c.dtype, data.c.device
+
+    ones = [mask.to(dt) for mask in (data.hl_mask, data.hu_mask, data.xl_mask, data.xu_mask)]
+    v = Vars(data.c.new_zeros((B, data.n)), data.c.new_zeros((B, data.p)), *ones, *ones)
+    ks = kkt.compute_scalings(
+        data, settings, v,
+        torch.full((B,), settings.rho_init, dtype=dt, device=dev),
+        torch.full((B,), settings.delta_init, dtype=dt, device=dev),
+        torch.zeros((B,), dtype=torch.bool, device=dev),
+        ops.P_diag(data),
+    )
+    pre = kkt.precompute(data, mixed)
+    inverse = settings.factor_inverse
+    ks, _ = kkt.factor(data, ks, mixed, pre, inverse)
+    t_factor = _elapsed(lambda: kkt.factor(data, ks, mixed, pre, inverse), dev)
+    t_solve = _elapsed(lambda: kkt.solve(data, settings, ks, v), dev)
+    return t_factor * (iters + 1 + retries), t_solve * (2 * iters + 1)
 
 
 def _invalid_result(settings: Settings, device) -> Result:

@@ -4,15 +4,21 @@ Every module of the port is batch-first, so a batch solve is the plain
 solve on data with a leading batch dimension; ``solve_batch`` adds only
 the optional chunking.  All problems in a batch share (n, p, m); masks may
 differ per problem, and the cone dispatch is one flag for the batch.
+
+``solve_batch_sqp`` runs rounds of warm re-solves with moved costs (the
+SQP/MPC loop), and ``solve_batch_compact`` re-solves the problems a short
+first pass leaves unconverged as a smaller batch.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from . import ruiz, solver
 from .api import (
     _route_backend,
     _solve_fresh,
@@ -20,7 +26,17 @@ from .api import (
     canonical_arrays,
     qpdata_from_arrays,
 )
-from .types import BasicVars, QPData, Result, Settings, concat, index, resolve_device
+from .types import (
+    BasicVars,
+    QPData,
+    Result,
+    Settings,
+    Status,
+    concat,
+    index,
+    index_put,
+    resolve_device,
+)
 
 
 def prepare_batch(
@@ -70,3 +86,87 @@ def solve_batch(
             parts.append(_solve_fresh(index(data, sl), settings, cone, wpart)[0])
         return concat(parts)
     return _solve_fresh(data, settings, cone, warm)[0]
+
+
+def solve_batch_sqp(
+    data,
+    settings: Settings = Settings(),
+    cone: bool = True,
+    rounds: int = 8,
+    warm: Optional[object] = None,
+    c_rounds: Optional[torch.Tensor] = None,
+) -> tuple:
+    """``rounds`` warm re-solves of the batch, each from the previous
+    round's iterates with a moved linear cost: the SQP/MPC loop
+    (``piqp_tpu/batch.py:127-213``, which fuses the rounds into one
+    executable; here they are a Python loop over the batched state).
+
+    ``c_rounds``: the cost of each round, (rounds, n) for every problem or
+    (B, rounds, n); by default ``c_r = c (1 + 0.01 (r + 1))``.  ``warm``: a
+    previous batched ``Result`` or ``BasicVars``; with None a cold
+    ``solve_batch`` gives the first iterates.  With
+    ``preconditioner_reuse_on_update`` the base data is equilibrated once
+    and each round reuses its scaling.  Returns (final_warm: BasicVars,
+    statuses (B, rounds) int32, iters (B, rounds) int32)."""
+    data = _route_backend(data, settings)
+    warm = _warm_vars(warm)
+    if warm is None:
+        warm = warm_from_result(_solve_fresh(data, settings, cone)[0])
+    sc0 = None
+    if settings.preconditioner_reuse_on_update:
+        _, sc0 = ruiz.equilibrate(
+            data, max_iter=settings.preconditioner_iter,
+            scale_cost=settings.preconditioner_scale_cost,
+        )
+    statuses, iters = [], []
+    for r in range(rounds):
+        if c_rounds is None:
+            c_r = data.c * (1.0 + 0.01 * (r + 1.0))
+        else:
+            c_r = c_rounds[r] if c_rounds.ndim == 2 else c_rounds[:, r]
+            c_r = c_r.to(data.c).expand_as(data.c)
+        dr = dataclasses.replace(data, c=c_r)
+        if sc0 is not None:
+            res = solver.solve_scaled(ruiz.apply_scaling(dr, sc0), sc0, settings, cone, warm)
+        else:
+            res = _solve_fresh(dr, settings, cone, warm)[0]
+        warm = warm_from_result(res)
+        statuses.append(res.info.status)
+        iters.append(res.info.iter)
+    return warm, torch.stack(statuses, dim=1), torch.stack(iters, dim=1)
+
+
+def solve_batch_compact(
+    data,
+    settings: Settings = Settings(),
+    cone: bool = True,
+    chunk: int = 0,
+    warm: Optional[object] = None,
+    phase1_iters: Optional[int] = None,
+) -> Result:
+    """Two-pass batched solve with straggler compaction
+    (``piqp_tpu/batch.py:220-290``).  The batch's loops run until its
+    slowest problem stops, so a few hard problems hold the rest: the first
+    pass runs with ``max_iter=phase1_iters`` (default 4 when warm-started,
+    12 cold; ``chunk`` as in ``solve_batch``), then the problems it left at
+    MAX_ITER_REACHED are gathered into one smaller batch and solved warm
+    from their first-pass iterates with the full budget.  Their results
+    are scattered back, with the first pass's iterations added to
+    ``info.iter``.
+
+    Every problem meets the same tolerances as in one pass; the second
+    pass is a warm restart, so its iterates differ from a one-pass solve."""
+    if phase1_iters is None:
+        phase1_iters = 4 if warm is not None else 12
+    warm = _warm_vars(warm)
+    s1 = dataclasses.replace(settings, max_iter=phase1_iters)
+    res1 = solve_batch(data, s1, cone, chunk, warm)
+    stalled = res1.info.status == int(Status.MAX_ITER_REACHED)
+    if phase1_iters >= settings.max_iter or not bool(stalled.any()):
+        return res1
+    idx = torch.nonzero(stalled).squeeze(-1)
+    gdata = index(_route_backend(data, settings), idx)
+    res2 = _solve_fresh(gdata, settings, cone, index(warm_from_result(res1), idx))[0]
+    res2 = dataclasses.replace(res2, info=dataclasses.replace(
+        res2.info, iter=res2.info.iter + phase1_iters))
+    return index_put(res1, idx, res2)

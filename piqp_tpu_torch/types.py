@@ -61,8 +61,9 @@ def status_to_string(status: int) -> str:
 
 
 class KKTBackend(enum.Enum):
-    """KKT solver backends (names as in ``piqp_tpu.KKTBackend``).  The port
-    implements all but ``sparse_host``, which is a later slice."""
+    """KKT solver backends (names as in ``piqp_tpu.KKTBackend``).
+    ``sparse_host`` is the NumPy/SciPy route of ``SparseSolver``
+    (``hostsparse.py``); dense data given it keeps the condensed backend."""
 
     dense_cholesky = "dense_cholesky"
     dense_lu = "dense_lu"
@@ -266,6 +267,24 @@ def index(value, i):
     })
 
 
+def index_put(value, i, new):
+    """``value`` with problems ``i`` (an index tensor) replaced by the
+    problems of ``new``, in every tensor of a dataclass (or nested tuple):
+    the scatter counterpart of ``index``."""
+    if isinstance(value, torch.Tensor):
+        out = value.clone()
+        out[i] = new
+        return out
+    if value is None:
+        return None
+    if isinstance(value, tuple):
+        return tuple(index_put(v, i, n) for v, n in zip(value, new))
+    return dataclasses.replace(value, **{
+        f.name: index_put(getattr(value, f.name), i, getattr(new, f.name))
+        for f in dataclasses.fields(value)
+    })
+
+
 def concat(values: list):
     """Concatenate dataclasses (or nested tuples) of batched tensors along
     the batch."""
@@ -381,8 +400,9 @@ def zero_vars(B: int, n: int, p: int, m: int, dtype, device) -> Vars:
 @dataclasses.dataclass
 class Info:
     """Per-problem solve metrics, mirrors Info (results.hpp:44-89): every
-    field has shape (B,).  The wall-time fields stay zero in this port
-    (``compute_timings`` is not ported yet)."""
+    field has shape (B,).  The time fields stay zero unless
+    ``Settings.compute_timings`` is set on a stateful solver
+    (``api.DenseSolver``, ``sparse.SparseSolver``)."""
 
     status: torch.Tensor  # int32
     iter: torch.Tensor  # int32

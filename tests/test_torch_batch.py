@@ -5,7 +5,10 @@ mode.  The port's batch is a leading dimension with per-problem masks;
 these tests check that each problem of a batch takes exactly the
 iterations JAX gives it (lockstep semantics of the nested loops), that no
 reduction mixes problems (one infeasible problem leaves the others'
-iteration counts unchanged), and that warm re-solves match."""
+iteration counts unchanged), and that warm re-solves, SQP rounds and
+straggler compaction match."""
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -18,7 +21,7 @@ from piqp_tpu.utils.random import dense_strongly_convex_qp
 
 import piqp_tpu_torch
 from piqp_tpu_torch import prepare_batch, solve_batch, warm_from_result
-from piqp_tpu_torch.types import index
+from piqp_tpu_torch.types import index, index_put
 
 from helpers import check_optimality
 
@@ -187,3 +190,146 @@ def test_factor_ladder_is_per_problem():
                                    rtol=1e-15, err_msg=name)
     assert tinfo.factor_retires.tolist() == [0, 0, ts.max_factor_retires]
     assert tinfo.delta[:2].tolist() == [ts.delta_init] * 2
+
+
+# ---------------------------------------------------------------------------
+# SQP rounds and straggler compaction against piqp_tpu.solve_batch_sqp and
+# piqp_tpu.solve_batch_compact (the tests/test_batch.py problems); float64,
+# statuses and iterations equal, x to rtol 1e-7 / atol 1e-9
+# ---------------------------------------------------------------------------
+
+ROUNDS = 3
+
+
+def _c_rounds(c, kind):
+    """Per-round costs: None (the default schedule), one (rounds, n)
+    schedule for every problem, or a (B, rounds, n) one."""
+    if kind == "default":
+        return None
+    if kind == "shared":
+        return np.stack([c[0] * (1.0 + 0.005 * (r + 1)) for r in range(ROUNDS)])
+    return np.stack([c * (1.0 - 0.004 * (r + 1)) for r in range(ROUNDS)], axis=1)
+
+
+def _jax_warm(jres):
+    return jax.tree.map(jax.numpy.asarray, jbatch.warm_from_result(jres))
+
+
+@pytest.mark.parametrize("kind", ["default", "shared", "per_problem"])
+def test_sqp_rounds_match_jax(cold, kind):
+    probs, jres, tres = cold
+    data = prepare_batch(probs, device="cpu")
+    cr = _c_rounds(data.c.numpy(), kind)
+    js = piqp_tpu.Settings(pallas_kernels=True)
+    jw, jst, jit_ = jbatch.solve_batch_sqp(
+        jbatch.prepare_batch(probs), js, rounds=ROUNDS, warm=_jax_warm(jres),
+        c_rounds=None if cr is None else jax.numpy.asarray(cr))
+    tw, tst, tit = piqp_tpu_torch.solve_batch_sqp(
+        data, piqp_tpu_torch.Settings(), rounds=ROUNDS, warm=tres,
+        c_rounds=None if cr is None else torch.as_tensor(cr))
+    assert tst.shape == tit.shape == (B, ROUNDS) and tst.dtype == tit.dtype == torch.int32
+    assert tst.tolist() == np.asarray(jst).tolist()
+    assert np.all(np.asarray(jst) == SOLVED)
+    assert tit.tolist() == np.asarray(jit_).tolist()
+    for k in ("x", "y", "z_l", "z_u"):
+        np.testing.assert_allclose(getattr(tw, k).numpy(), np.asarray(getattr(jw, k)),
+                                   rtol=1e-7, atol=1e-9, err_msg=k)
+
+
+def test_sqp_rounds_match_sequential_warm_solves(cold):
+    """The rounds are the warm re-solves solve_batch gives one after the
+    other with the same costs; with no warm start a cold solve comes
+    first."""
+    probs, _, tres = cold
+    data = prepare_batch(probs, device="cpu")
+    settings = piqp_tpu_torch.Settings()
+    wf, st, it = piqp_tpu_torch.solve_batch_sqp(data, settings, rounds=ROUNDS, warm=tres)
+    warm = warm_from_result(tres)
+    for r in range(ROUNDS):
+        res = solve_batch(dataclasses.replace(data, c=data.c * (1.0 + 0.01 * (r + 1))),
+                          settings, warm=warm)
+        warm = warm_from_result(res)
+        assert it[:, r].tolist() == res.info.iter.tolist()
+    np.testing.assert_allclose(wf.x.numpy(), warm.x.numpy(), rtol=0, atol=0)
+    wf0, st0, it0 = piqp_tpu_torch.solve_batch_sqp(data, settings, rounds=ROUNDS)
+    assert it0.tolist() == it.tolist()
+    np.testing.assert_allclose(wf0.x.numpy(), wf.x.numpy(), rtol=0, atol=0)
+
+
+def test_sqp_rounds_reuse_the_preconditioner(cold):
+    """preconditioner_reuse_on_update scales every round with the base
+    data's Ruiz scaling: every round still solves, to the same optimum."""
+    probs, _, tres = cold
+    data = prepare_batch(probs, device="cpu")
+    wf, st, _ = piqp_tpu_torch.solve_batch_sqp(
+        data, piqp_tpu_torch.Settings(), rounds=ROUNDS, warm=tres)
+    wr, sr, _ = piqp_tpu_torch.solve_batch_sqp(
+        data, piqp_tpu_torch.Settings(preconditioner_reuse_on_update=True), rounds=ROUNDS,
+        warm=tres)
+    assert sr.tolist() == st.tolist() == [[SOLVED] * ROUNDS] * B
+    np.testing.assert_allclose(wr.x.numpy(), wf.x.numpy(), atol=1e-6)
+
+
+def _compact_both(probs, **kw):
+    jr = jbatch.solve_batch_compact(jbatch.prepare_batch(probs),
+                                    piqp_tpu.Settings(pallas_kernels=True), **kw)
+    tr = piqp_tpu_torch.solve_batch_compact(prepare_batch(probs, device="cpu"),
+                                            piqp_tpu_torch.Settings(), **kw)
+    jr = jax.tree.map(np.asarray, jr)
+    assert tr.info.status.tolist() == jr.info.status.tolist()
+    assert tr.info.iter.tolist() == jr.info.iter.tolist()
+    np.testing.assert_allclose(tr.x.numpy(), jr.x, rtol=1e-7, atol=1e-9)
+    return tr
+
+
+def test_compact_matches_jax_and_one_pass():
+    """Phase 1 stops at 6 iterations, short of every problem's need, so all
+    24 take phase 2: the port gathers them unpadded and matches JAX's
+    padded phase 2; every problem meets the one-pass solve's status and
+    optimum, its iterations count both phases, and a chunked phase 1
+    changes nothing."""
+    probs = [dense_strongly_convex_qp(24, 8, 12, seed=300 + i) for i in range(24)]
+    rc = _compact_both(probs, phase1_iters=6)
+    data = prepare_batch(probs, device="cpu")
+    r1 = solve_batch(data)
+    assert rc.info.status.tolist() == r1.info.status.tolist() == [SOLVED] * 24
+    np.testing.assert_allclose(rc.x.numpy(), r1.x.numpy(), atol=1e-6)
+    assert int(rc.info.iter.min()) > 6
+    rk = piqp_tpu_torch.solve_batch_compact(data, phase1_iters=6, chunk=8)
+    assert rk.info.iter.tolist() == rc.info.iter.tolist()
+    np.testing.assert_allclose(rk.x.numpy(), rc.x.numpy(), rtol=0, atol=0)
+    rw = piqp_tpu_torch.solve_batch_compact(
+        dataclasses.replace(data, c=data.c * 1.01), warm=r1, phase1_iters=3)
+    assert rw.info.status.tolist() == [SOLVED] * 24
+
+
+def test_compact_short_circuits_when_all_converge():
+    probs = [dense_strongly_convex_qp(12, 4, 6, seed=400 + i) for i in range(8)]
+    rc = _compact_both(probs, phase1_iters=200)
+    assert rc.info.status.tolist() == [SOLVED] * 8
+
+
+def test_compact_keeps_the_infeasible_problem():
+    """The primal infeasible problem gets the full budget in phase 2 and
+    comes back certified, as in JAX."""
+    probs = [dense_strongly_convex_qp(12, 4, 6, seed=500 + i) for i in range(7)]
+    bad = dense_strongly_convex_qp(12, 4, 6, seed=599)
+    bad["A"] = np.vstack([bad["A"][:2], bad["A"][:2]])
+    bad["b"] = np.concatenate([bad["b"][:2], bad["b"][:2] + 1.0])
+    rc = _compact_both(probs + [bad], phase1_iters=4)
+    assert rc.info.status.tolist() == [SOLVED] * 7 + [
+        int(piqp_tpu_torch.Status.PRIMAL_INFEASIBLE)]
+
+
+def test_index_put_scatters_every_field(cold):
+    _, _, tres = cold
+    idx = torch.tensor([1, 6])
+    part = index(tres, idx)
+    part = dataclasses.replace(part, x=part.x + 1.0, info=dataclasses.replace(
+        part.info, iter=part.info.iter + 100))
+    out = index_put(tres, idx, part)
+    assert out.info.iter.tolist() == [int(v) + 100 * (i in (1, 6))
+                                      for i, v in enumerate(tres.info.iter)]
+    np.testing.assert_allclose((out.x - tres.x)[:, 0].numpy(),
+                               [float(i in (1, 6)) for i in range(B)])
+    assert out.y is not tres.y and torch.equal(out.y, tres.y)

@@ -100,8 +100,13 @@ def test_route_backend_picks_the_data_type():
     assert type(_route_backend(data, S(kkt_solver=B.dense_ldlt))) is LDLTKKTQPData
     assert type(_route_backend(data, S(kkt_solver=B.multistage))) is QPData
     assert type(_route_backend(data, S())) is QPData
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        _route_backend(data, S(kkt_solver=B.sparse_host))
+    # as in JAX, dense data given sparse_host keeps the condensed backend
+    from piqp_tpu.api import _route_backend as jroute
+
+    assert type(_route_backend(data, S(kkt_solver=B.sparse_host))) is QPData
+    jdata = jbatch.prepare_batch([prob])
+    assert type(jroute(jdata, piqp_tpu.Settings(
+        kkt_solver=piqp_tpu.KKTBackend.sparse_host))) is type(jdata)
 
 
 @pytest.mark.parametrize(

@@ -211,11 +211,28 @@ def test_invalid_settings_and_unported_backends():
         res = piqp_tpu_torch.solve_dense(np.eye(2), -np.ones(2), settings=settings, device="cpu")
         assert int(res.info.status) == int(piqp_tpu_torch.Status.SOLVED)
         np.testing.assert_allclose(res.x.numpy(), np.ones(2), atol=1e-8)
-    settings = piqp_tpu_torch.Settings(kkt_solver=piqp_tpu_torch.KKTBackend.sparse_host)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        piqp_tpu_torch.solve_dense(np.eye(2), np.zeros(2), settings=settings, device="cpu")
-    with pytest.raises(NotImplementedError):
-        piqp_tpu_torch.solve_dense(
-            np.eye(2), np.zeros(2), device="cpu",
-            settings=piqp_tpu_torch.Settings(compute_timings=True),
-        )
+    # sparse_host and compute_timings on the dense entry points behave as in
+    # JAX: the condensed backend solves, and only the stateful solver
+    # fills the time fields
+    prob = dense_strongly_convex_qp(12, 3, 6, seed=7)
+    for kw in (dict(kkt_solver="sparse_host"), dict(compute_timings=True)):
+        jkw = dict(kw, kkt_solver=piqp_tpu.KKTBackend(kw.get("kkt_solver", "dense_cholesky")))
+        tkw = dict(kw, kkt_solver=piqp_tpu_torch.KKTBackend(jkw["kkt_solver"].value))
+        jres = piqp_tpu.solve_dense(**prob, settings=piqp_tpu.Settings(**jkw))
+        tres = piqp_tpu_torch.solve_dense(**prob, settings=piqp_tpu_torch.Settings(**tkw),
+                                          device="cpu")
+        _assert_parity(jres, tres)
+        assert float(tres.info.solve_time) == 0.0
+    s = piqp_tpu_torch.DenseSolver(piqp_tpu_torch.Settings(compute_timings=True), device="cpu")
+    s.setup(**prob)
+    assert s.solve() == piqp_tpu_torch.Status.SOLVED
+    info = s.result.info
+    for name in ("setup_time", "solve_time", "kkt_factor_time", "kkt_solve_time"):
+        assert float(getattr(info, name)) > 0.0, name
+    assert float(info.update_time) == 0.0
+    assert float(info.run_time) == pytest.approx(float(info.setup_time) + float(info.solve_time))
+    s.update(c=prob["c"] * 1.01)
+    assert s.solve(warm_start=True) == piqp_tpu_torch.Status.SOLVED
+    info = s.result.info
+    assert float(info.update_time) > 0.0
+    assert float(info.run_time) == pytest.approx(float(info.update_time) + float(info.solve_time))

@@ -1,7 +1,7 @@
 """``SparseSolver`` of the PyTorch port against the JAX package's: the
 multistage route through structure detection, the selective vector update
 and warm start, the dense route, the fallback without structure, and the
-host route that is not ported yet.
+host route.
 
 Tolerances: float64, status and iteration count equal, x to 1e-8 (scaled
 by max(1, |x|))."""
@@ -136,11 +136,21 @@ def test_dense_route_and_fallback_match_dense_solver():
 
 
 def test_host_route_is_not_ported():
+    """The host route, once unported: by setting and above the size cap,
+    SparseSolver solves on the host as the JAX package's does (status,
+    iterations and x equal to 1e-12).  Invalid settings are still caught
+    on the multistage route."""
     prob = _user_problem(25)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        SparseSolver(Settings(kkt_solver=KKTBackend.sparse_host), device="cpu").setup(**prob)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        SparseSolver(Settings(dense_routing_max_n=10), device="cpu").setup(**prob)
+    for kw in (dict(kkt_solver="sparse_host"), dict(dense_routing_max_n=10)):
+        jkw = dict(kw, kkt_solver=piqp_tpu.KKTBackend(kw.get("kkt_solver", "dense_cholesky")))
+        tkw = dict(kw, kkt_solver=KKTBackend(jkw["kkt_solver"].value))
+        js = piqp_tpu.SparseSolver(piqp_tpu.Settings(**jkw))
+        ts = SparseSolver(Settings(**tkw), device="cpu")
+        for s in (js, ts):
+            s.setup(**prob)
+            assert s._host_raw is not None and s.solve() == Status.SOLVED
+        assert ts.result.info.iter == js.result.info.iter
+        _close(ts.result.x, js.result.x, 1e-12, "x")
     s = SparseSolver(Settings(kkt_solver=KKTBackend.multistage, eps_abs=-1.0), device="cpu")
     s.setup(**prob)
     assert s.solve() == Status.INVALID_SETTINGS
