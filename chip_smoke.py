@@ -81,7 +81,19 @@ Phases:
      checks, wall times and effective iterations per problem;
  13. ``compute_timings`` on a ``DenseSolver`` on the card (six time
      fields filled), and ``SparseSolver`` with ``kkt_solver=sparse_host``
-     at n = 600 against the card's dense solve of the same problem.
+     at n = 600 against the card's dense solve of the same problem;
+ 14. horizon sharding on a NCCL process group of one rank (FileStore in a
+     temporary directory; a gloo group beside it for the CPU): BASELINE
+     config 4, one problem random_multistage_qp(T=100, D=8, Da=4, ra=4,
+     rg=4, seed=4), through ``solve_horizon_sharded`` at 4 chunks
+     (cyclic-reduction interiors, one K2 launch a level) and 8 chunks
+     (T padded to 104, chain interiors), float64 and mixed, cold and a
+     warm re-solve after c *= 1.01, each held against the sequential
+     solve on the card, the sharded solve on the CPU and the host KKT
+     check; the phase-7 fleet at 4 chunks, mixed cold and one warm round,
+     against phase 7; ``solve_batch(sharding=group)`` on phase 3's fleet,
+     identical to phase 3's cold round; K2 launches by route (all small,
+     more than 0 at 4 chunks) and the sharded-call counter.
 The line before the last lists the kernels as JSON; the last line is the
 device summary.
 """
@@ -120,10 +132,20 @@ MS_B, MS_T, MS_D, MS_DA, MS_RA, MS_RG = 256, 100, 8, 4, 4, 4
 K2_RAGGED_N = 101
 K2_FLEET = (MS_B * MS_T // 2, MS_D, 2 * MS_D + MS_DA)
 K2_D23 = (256 * (43 // 2), 23, 2 * 23 + 4)
+# BASELINE config 4 (benchmarks/horizon_bench.py:20,63): one problem of
+# the multistage fleet's shape, solved horizon-sharded.  At 4 chunks each
+# chunk's Qi = 24 interior stages take cyclic-reduction levels of 12, 6,
+# 3, 1 and 1 odd blocks, each with the right-hand side [S_in | S_out' |
+# Ea'] of R = 2D + W = 4D + Da columns: K2 launches at N = 4 chunks x
+# those blocks for config 4 and MS_B times that for the fleet
+CFG4_SEED = 4
+K2_HORIZON = sorted({(b * 4 * h, MS_D, 4 * MS_D + MS_DA)
+                     for b in (1, MS_B) for h in (12, 6, 3, 1)}
+                    | {(K2_RAGGED_N, MS_D, 4 * MS_D + MS_DA)})
 K2_SHAPES = ([(5, D, 2 * D + 4) for D in (4, 8, 16, 33, 64, 128)]
              + [(K2_RAGGED_N, D, R) for D in (1, 4, 7, 8, 9, 16, 23, 31, 32)
                 for R in (3, 2 * D + 4)]
-             + [K2_FLEET, K2_D23])
+             + [K2_FLEET, K2_D23] + K2_HORIZON)
 # rotated input sets of the cold-L2 timing: more than the 50 MB L2 holds
 K2_COLD_SETS = 8
 K3_SHAPES = [(5, 64), (5, 128), (5, 168), (5, 169), (5, 192), (5, 224), (5, 225), (5, 239),
@@ -156,6 +178,14 @@ SQP_ROUNDS = 4
 # these problems the JAX package's own mixed run and the port's CPU run
 # differ by up to 1.7e-5 in x
 XCHECK_MIXED_TOL = 1e-4
+# two mixed-precision solves of one fleet by different factorizations (the
+# horizon-sharded fleet against phase 7), each stopping near, not at, the
+# float64 optimum: scripts/horizon_fleet.py finds the phase-7 fleet's mixed
+# x up to 1.08e-4 (sequential, problem 230) and 1.17e-4 (sharded at 4
+# chunks, problem 130) from its float64 x on an H100, and up to 8.9e-5 and
+# 9.9e-5 on the CPU.  A judgement, not a bound: the pair observed on an
+# H100 sits 1.08e-4 apart
+XCHECK_MIXED_PAIR_TOL = 2 * XCHECK_MIXED_TOL
 
 
 def _smi() -> str:
@@ -354,6 +384,9 @@ def _check_k2(torch, smi) -> list:
         for N, D, R in K2_SHAPES:
             K, RHS = _apply_batch(torch, N, D, R, dtype, seed=D + R)
             route, (L, Linv, Y) = routed(K, RHS)
+            if (N, D, R) in K2_HORIZON and route != "small":
+                raise AssertionError(f"K2 {name} N={N} D={D} R={R}: the horizon path's shape "
+                                     f"takes the {route} route")
             torch.cuda.synchronize()
             L_ref, Linv_ref, Y_ref = chol_inv.chol_inv_apply_reference(K, RHS)
             eye = torch.eye(D, dtype=dtype, device="cuda")
@@ -908,6 +941,200 @@ def _timings_and_host_route(torch, smi, problems, moved):
         raise AssertionError("the host route disagrees with the card's dense solve")
 
 
+def _unpad_stage(res, T, T_pad, D, Da, ra, rg) -> dict:
+    """The float64 host arrays of a (B = 1) result in a padded stage
+    layout, cut back to the unpadded problem's coordinates and rows."""
+    def xlike(v):
+        return np.concatenate([v[:T * D], v[T_pad * D:]])
+
+    h = {k: getattr(res, k)[0].double().cpu().numpy()
+         for k in ("x", "y", "z_l", "z_u", "z_bl", "z_bu")}
+    return dict(x=xlike(h["x"]), y=h["y"][:T * ra], z_l=h["z_l"][:T * rg],
+                z_u=h["z_u"][:T * rg], z_bl=xlike(h["z_bl"]), z_bu=xlike(h["z_bu"]))
+
+
+def _horizon_phase(torch, smi, fleet: dict, dense: dict) -> dict:
+    """Phase 14: horizon-sharded multistage solves and batch sharding on a
+    NCCL process group of one rank (a gloo group beside it for the CPU
+    cross-check).  BASELINE config 4 (one problem, T = 100, D = 8) at 4
+    chunks (cyclic-reduction interiors through K2) and 8 chunks (T pads to
+    104, chain interiors), float64 and mixed, cold and a warm re-solve
+    after c *= 1.01; the phase-7 fleet at 4 chunks; ``solve_batch`` with
+    ``sharding`` on the phase-3 fleet.  Returns the phase's K2 launches by
+    dtype and the batch solve's K1 launches by route."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from piqp_tpu_torch import Settings, multistage, solve_batch, solve_horizon_sharded
+    from piqp_tpu_torch.ops import chol_inv
+    from piqp_tpu_torch.parallel import sharded_calls
+    from piqp_tpu_torch.types import index, to_device
+
+    # the shapes of the sharded solves' K2 launches on the card, each to be
+    # one that phase 2 held against the plain version
+    launched, kernel = set(), multistage.cholesky_inverse_apply
+
+    def recorded(K, RHS):
+        if K.is_cuda:
+            launched.add((str(K.dtype).removeprefix("torch."), K.shape[0], K.shape[-1],
+                          RHS.shape[-1]))
+        return kernel(K, RHS)
+
+    dims = dict(T=MS_T, D=MS_D, Da=MS_DA, ra=MS_RA, rg=MS_RG)
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+                                rank=0, world_size=1)
+        try:
+            gloo = dist.new_group(backend="gloo")
+            dist.all_reduce(torch.zeros(1, device="cuda"))  # the communicator, set up once
+            f64, mixed = Settings(), Settings(mixed_precision=True)
+            kw = multistage.random_multistage_arrays(seed=CFG4_SEED, **dims)
+            base = multistage.random_multistage_qp(seed=CFG4_SEED, **dims)
+            moved = dataclasses.replace(base, c=base.c * 1.01)
+            probs = {"cold": _stage_problem(multistage, kw),
+                     "warm": _stage_problem(multistage, kw, kw["c"] * 1.01)}
+            # the sequential solves on the card: cold, then warm from its own
+            # cold result, as the sharded runs below (a warm re-solve stops
+            # at its own point within the tolerances, up to ~1e-4 from the
+            # cold optimum of the moved problem)
+            seq = {}
+            for label, st in (("float64", f64), ("mixed", mixed)):
+                c = solve_batch(base, st)
+                seq[label] = {"cold": c, "warm": solve_batch(moved, st, warm=c)}
+                for k, r in seq[label].items():
+                    if r.info.status.tolist() != [1]:
+                        raise AssertionError(f"config 4 sequential {label} {k}: "
+                                             f"{r.info.status.tolist()}")
+            _reset_counts()
+            multistage.cholesky_inverse_apply = recorded
+            k2_by_chunks, calls0 = {}, dict(sharded_calls)
+            for chunks in (4, 8):
+                T_pad = max(2 * chunks, -(-MS_T // chunks) * chunks)
+                before = dict(chol_inv.apply_launches_by_route)
+                for label, st in (("float64", f64), ("mixed", mixed)):
+                    cold, cold_s = _timed(torch, lambda: solve_horizon_sharded(
+                        base, chunks=chunks, settings=st))
+                    warm, warm_s = _timed(torch, lambda: solve_horizon_sharded(
+                        moved, chunks=chunks, settings=st, warm=cold))
+                    cpu_cold = solve_horizon_sharded(to_device(base, "cpu"), group=gloo,
+                                                     chunks=chunks, settings=st)
+                    cpu_warm = solve_horizon_sharded(to_device(moved, "cpu"), group=gloo,
+                                                     chunks=chunks, settings=st, warm=cpu_cold)
+                    for phase, res, cpu, secs in (("cold", cold, cpu_cold, cold_s),
+                                                  ("warm", warm, cpu_warm, warm_s)):
+                        what = f"config 4 chunks={chunks} {label} {phase}"
+                        if res.info.status.tolist() != [1] or res.x.shape[-1] != T_pad * MS_D + MS_DA:
+                            raise AssertionError(f"{what}: status {res.info.status.tolist()}, "
+                                                 f"n {res.x.shape[-1]}")
+                        host = _unpad_stage(res, MS_T, T_pad, MS_D, MS_DA, MS_RA, MS_RG)
+                        ref = seq[label][phase].x[0].cpu().numpy()
+                        dx_seq = float(np.abs(host["x"] - ref).max())
+                        tol_seq = XCHECK_MIXED_TOL if st.mixed_precision else 1e-7 + 1e-6 * float(
+                            np.abs(ref).max())
+                        dx_cpu = (res.x.cpu() - cpu.x).abs().max().item()
+                        same = (cpu.info.status.tolist() == [1]
+                                and (st.mixed_precision
+                                     or cpu.info.iter.tolist() == res.info.iter.cpu().tolist()))
+                        tol_cpu = XCHECK_MIXED_TOL if st.mixed_precision else 1e-9
+                        viol = _optimality(probs[phase], *(host[k] for k in (
+                            "x", "y", "z_l", "z_u", "z_bl", "z_bu")))
+                        print(f"[horizon] {what}: SOLVED in {int(res.info.iter)} iterations "
+                              f"({secs * 1e3:.1f} ms, host clock), |x - x_sequential| "
+                              f"{dx_seq:.2e} (limit {tol_seq:.1e}), CPU port "
+                              f"{int(cpu.info.iter)} iterations |x_card - x_cpu| {dx_cpu:.2e} "
+                              f"(limit {tol_cpu:.0e}), KKT {viol:.2e}; {smi}")
+                        if not (dx_seq <= tol_seq and same and dx_cpu <= tol_cpu
+                                and viol <= OPT_TOL and np.isfinite(host["x"]).all()):
+                            raise AssertionError(f"{what} disagrees with its references")
+                k2_by_chunks[chunks] = {k: chol_inv.apply_launches_by_route[k] - before[k]
+                                        for k in before}
+            calls = {k: sharded_calls[k] - calls0[k] for k in calls0}
+            print(f"[horizon] config 4: sharded factors and solves (card and CPU) {calls}, "
+                  f"K2 launches by route at 4 chunks {k2_by_chunks[4]}, at 8 chunks "
+                  f"{k2_by_chunks[8]}")
+            if not (k2_by_chunks[4]["small"] > 0 and k2_by_chunks[4]["general"] == 0
+                    and calls["factor"] > 0 and calls["solve"] > 0):
+                raise AssertionError("config 4 at 4 chunks: the sharded factor did not launch "
+                                     "the small K2 kernel")
+
+            # the phase-7 fleet at 4 chunks, mixed cold and one warm round
+            data7, data7w, s_ms = fleet["data"], fleet["data_w"], fleet["settings"]
+            solve_horizon_sharded(data7, chunks=4, settings=s_ms)  # warm-up at this shape
+            before = (dict(chol_inv.apply_launches_by_route), dict(sharded_calls))
+            f_cold, f_cold_s = _timed(torch, lambda: solve_horizon_sharded(
+                data7, chunks=4, settings=s_ms))
+            f_warm, f_warm_s = _timed(torch, lambda: solve_horizon_sharded(
+                data7w, chunks=4, settings=s_ms, warm=f_cold))
+            k2_fleet = {k: chol_inv.apply_launches_by_route[k] - before[0][k] for k in before[0]}
+            grew = all(sharded_calls[k] > before[1][k] for k in before[1])
+            for phase, res, ref, secs, ref_s, shift in (
+                    ("cold", f_cold, fleet["cold"], f_cold_s, fleet["cold_s"], None),
+                    ("warm", f_warm, fleet["warm"], f_warm_s, fleet["warm_s"], fleet["dc"])):
+                viol = _check_round(fleet["problems"](shift), res, f"sharded fleet {phase}")
+                dx = (res.x - ref.x).abs().max().item()
+                it, it7 = res.info.iter.cpu().numpy(), ref.info.iter.cpu().numpy()
+                print(f"[horizon fleet {phase}] {data7.B}/{data7.B} SOLVED at 4 chunks, "
+                      f"{secs * 1e3:.1f} ms a round against phase 7's {ref_s * 1e3:.1f} ms "
+                      f"(host clock), iterations median {np.median(it):.1f} max {it.max()} "
+                      f"(phase 7: {np.median(it7):.1f}, {it7.max()}), |x - x_phase7| {dx:.2e} "
+                      f"(limit {XCHECK_MIXED_PAIR_TOL:.0e}), worst KKT {viol:.2e}; {smi}")
+                if not dx <= XCHECK_MIXED_PAIR_TOL:
+                    raise AssertionError(f"sharded fleet {phase} disagrees with phase 7")
+            # the cold round's slowest problem alone: sharded on the card, and
+            # sharded and sequential through the port on the CPU
+            i = int(f_cold.info.iter.argmax())
+            one = index(data7, slice(i, i + 1))
+            alone = solve_horizon_sharded(one, chunks=4, settings=s_ms)
+            cpu_alone = solve_horizon_sharded(to_device(one, "cpu"), group=gloo, chunks=4,
+                                              settings=s_ms)
+            cpu_seq = solve_batch(to_device(one, "cpu"), s_ms)
+            dx = (alone.x.cpu() - cpu_alone.x).abs().max().item()
+            print(f"[horizon fleet] slowest cold problem {i}: {int(f_cold.info.iter[i])} "
+                  f"iterations in the fleet (phase 7: {int(fleet['cold'].info.iter[i])}); alone "
+                  f"sharded {int(alone.info.iter[0])} on the card, {int(cpu_alone.info.iter[0])} "
+                  f"on the CPU (sequential on the CPU {int(cpu_seq.info.iter[0])}), "
+                  f"|x_card - x_cpu| {dx:.2e} (limit {XCHECK_MIXED_TOL:.0e})")
+            if not (alone.info.status.tolist() == cpu_alone.info.status.tolist() == [1]
+                    and dx <= XCHECK_MIXED_TOL):
+                raise AssertionError(f"the sharded fleet's problem {i} disagrees with the CPU port")
+            k2_by_dtype = dict(chol_inv.apply_launches_by_dtype)
+            print(f"[horizon fleet] K2 launches by route {k2_fleet}; phase 14's K2 launches by "
+                  f"dtype {k2_by_dtype}")
+            if not (grew and k2_fleet["small"] > 0 and k2_fleet["general"] == 0):
+                raise AssertionError(f"sharded fleet: K2 launches {k2_fleet}, sharded calls "
+                                     f"grew {grew}")
+            multistage.cholesky_inverse_apply = kernel
+            checked = {(name, *shape) for name in ("float32", "float64") for shape in K2_SHAPES}
+            print(f"[horizon] K2 shapes launched on the card (dtype, N, n, R): "
+                  f"{sorted(launched)}, all held against the plain version in phase 2 "
+                  f"{launched <= checked}")
+            if not launched or not launched <= checked:
+                raise AssertionError(f"K2 shapes of the sharded path never checked: "
+                                     f"{sorted(launched - checked)}")
+
+            # the batch over the group's ranks: phase 3's cold round again
+            before = dict(chol_inv.launches_by_route)
+            rb, rb_s = _timed(torch, lambda: solve_batch(
+                dense["data"], dense["settings"], sharding=dist.group.WORLD))
+            k1 = {k: chol_inv.launches_by_route[k] - before[k] for k in before}
+            same = torch.equal(rb.x, dense["cold"].x) and torch.equal(
+                rb.info.iter, dense["cold"].info.iter)
+            print(f"[horizon batch] solve_batch(sharding=group) B={dense['data'].B}: "
+                  f"{rb_s * 1e3:.1f} ms (host clock; phase 3 cold {dense['cold_s'] * 1e3:.1f} "
+                  f"ms), x and iterations identical to phase 3 {same}, K1 launches by route "
+                  f"{k1}; {smi}")
+            if not (same and k1["resident"] > 0):
+                raise AssertionError("solve_batch(sharding=...) differs from phase 3's cold round")
+        finally:
+            multistage.cholesky_inverse_apply = kernel
+            dist.destroy_process_group()
+    return dict(k2=k2_by_dtype, k1=k1)
+
+
 def _xcheck(label, cpu, gpu, mixed: bool) -> None:
     """CPU (plain versions) against the card on the same problems."""
     same_status = cpu.info.status.tolist() == gpu.info.status.cpu().tolist()
@@ -1327,6 +1554,19 @@ def main() -> int:
         raise AssertionError("SQP rounds or compaction did not launch K1")
     _timings_and_host_route(torch, smi, problems, moved)
     print(f"[phases 10-13] {time.perf_counter() - t_new:.1f} s")
+
+    # ---- 14. horizon-sharded solves and batch sharding (torch.distributed)
+    t_new = time.perf_counter()
+    hz = _horizon_phase(
+        torch, smi,
+        dict(data=data7, data_w=data7w, settings=s_ms, cold=cold7, warm=warm7,
+             cold_s=cold7_s, warm_s=warm7_s, dc=dc,
+             problems=lambda shift: stage_problems(MS_B, shift)),
+        dict(data=data, settings=settings, cold=cold, cold_s=cold_s))
+    for entry in kernels:
+        if entry["name"].startswith("chol_inv_apply_"):
+            entry["horizon_launches"] = hz["k2"][entry["name"].removeprefix("chol_inv_apply_")]
+    print(f"[phase 14] {time.perf_counter() - t_new:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(f"[device] {smi}")

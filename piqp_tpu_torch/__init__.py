@@ -25,7 +25,10 @@ Around the solve: ``solve_batch_sqp`` runs warm re-solve rounds,
 ``solve_batch_compact`` re-solves a batch's stragglers as a smaller
 batch, and ``solve_qp_diff`` / ``qp_layer`` differentiate the solution
 with ``torch.autograd`` (implicit differentiation of the KKT
-conditions).  The JAX package ``piqp_tpu`` is the reference, and no
+conditions).  Across the ranks of a ``torch.distributed`` process group,
+``solve_horizon_sharded`` splits a multistage horizon into stage chunks
+(``parallel/horizon.py``) and ``solve_batch(sharding=group)`` splits a
+batch; importing the package initialises no process group.  The JAX package ``piqp_tpu`` is the reference, and no
 module here imports it or JAX.
 """
 
@@ -51,6 +54,7 @@ from .batch import (
 )
 from .diff import qp_layer, solve_qp_diff
 from .multistage import StageQPData, random_multistage_batch, random_multistage_qp
+from .parallel import ShardedStageQPData, shard_horizon, solve_horizon_sharded
 from .sparse import SparseSolver
 
 __version__ = "0.1.0"
@@ -66,6 +70,7 @@ __all__ = [
     "Scaling",
     "Settings",
     "SparseSolver",
+    "ShardedStageQPData",
     "StageQPData",
     "Status",
     "status_to_string",
@@ -81,6 +86,8 @@ __all__ = [
     "qp_layer",
     "random_multistage_batch",
     "random_multistage_qp",
+    "shard_horizon",
+    "solve_horizon_sharded",
     "warm_from_result",
     "__version__",
 ]

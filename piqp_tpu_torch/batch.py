@@ -2,7 +2,8 @@
 
 Every module of the port is batch-first, so a batch solve is the plain
 solve on data with a leading batch dimension; ``solve_batch`` adds only
-the optional chunking.  All problems in a batch share (n, p, m); masks may
+the optional chunking and the split of the batch over the ranks of a
+``torch.distributed`` process group.  All problems in a batch share (n, p, m); masks may
 differ per problem, and the cone dispatch is one flag for the batch.
 
 ``solve_batch_sqp`` runs rounds of warm re-solves with moved costs (the
@@ -17,6 +18,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import ruiz, solver
 from .api import (
@@ -26,6 +28,7 @@ from .api import (
     canonical_arrays,
     qpdata_from_arrays,
 )
+from .parallel.comm import all_gather_tree, require_group
 from .types import (
     BasicVars,
     QPData,
@@ -64,6 +67,7 @@ def solve_batch(
     data,
     settings: Settings = Settings(),
     cone: bool = True,
+    sharding=None,
     chunk: int = 0,
     warm: Optional[object] = None,
 ) -> Result:
@@ -71,12 +75,29 @@ def solve_batch(
     a ``QPData`` or a stacked ``multistage.StageQPData``).  The backend
     follows ``settings.kkt_solver`` as in ``api._route_backend``.
 
+    ``sharding``: a ``torch.distributed`` process group
+    (``torch.distributed.group.WORLD`` for the default one) to split the
+    batch over its ranks (``piqp_tpu/batch.py:89-125`` puts the batch on a
+    ``NamedSharding``).  Every rank passes the whole batch (and ``warm``),
+    solves its B/world consecutive problems and gets the whole result back
+    (one all-gather of the result); B must divide by the group's size.
+
     ``chunk``: when nonzero and smaller than the batch, solve sub-batches
     of ``chunk`` problems one after the other, which bounds the working
     set.  ``warm``: a previous batched ``Result`` or ``BasicVars`` to
     warm-start from."""
     data = _route_backend(data, settings)
     warm = _warm_vars(warm)
+    if sharding is not None:
+        world = require_group(sharding)
+        if data.B % world:
+            raise ValueError(f"a batch of {data.B} does not split over {world} ranks")
+        per = data.B // world
+        rank = dist.get_rank(sharding)
+        mine = slice(rank * per, (rank + 1) * per)
+        part = solve_batch(index(data, mine), settings, cone, chunk=chunk,
+                           warm=None if warm is None else index(warm, mine))
+        return all_gather_tree(part, sharding)
     B = data.B
     if chunk and B > chunk:
         parts = []
@@ -160,7 +181,7 @@ def solve_batch_compact(
         phase1_iters = 4 if warm is not None else 12
     warm = _warm_vars(warm)
     s1 = dataclasses.replace(settings, max_iter=phase1_iters)
-    res1 = solve_batch(data, s1, cone, chunk, warm)
+    res1 = solve_batch(data, s1, cone, chunk=chunk, warm=warm)
     stalled = res1.info.status == int(Status.MAX_ITER_REACHED)
     if phase1_iters >= settings.max_iter or not bool(stalled.any()):
         return res1

@@ -566,15 +566,33 @@ def _next_chunkable(T: int) -> int:
     return Tp
 
 
-def _chunked_factor(Kd, Ksub, Ka, Kc, C: int, inverse: bool = False):
+def _all_chunks(t):
+    """The gather of a process that holds every chunk: nothing to join."""
+    return t
+
+
+def _chunked_factor(Kd, Ksub, Ka, Kc, C: int, inverse: bool = False,
+                    own: Optional[slice] = None, gather=_all_chunks):
     """C chunk interiors of Q - 1 stages, each coupled to its two boundary
     separators and the arrow (coupling width W = 2D + Da), factored as one
-    (B, C) batch; then the C-stage chain of separators and the arrow."""
+    (B, C) batch; then the C-stage chain of separators and the arrow.
+
+    ``own`` is the contiguous range of chunks whose interiors this process
+    factors (all C by default); ``gather`` joins per-chunk pieces across
+    the chunks: here the pair (Schur blocks (B, own chunks, W, W), the owned
+    interiors' flags (B,)) into (B, C, W, W) and the flags of every chunk,
+    in ``_chunked_solve`` a tensor (B, own chunks, ...) along dimension 1.
+    The single-device scheme owns every chunk and gathers nothing; the
+    horizon-sharded one (``parallel.horizon``) owns its rank's chunks and
+    gathers with ``torch.distributed``.  The separator chain is factored
+    whole on every process from the gathered Schur blocks."""
     B, T, D = Kd.shape[0], Kd.shape[1], Kd.shape[-1]
     Da = Kc.shape[-1]
     Q = T // C
     Qi = Q - 1
     W = 2 * D + Da
+    own = slice(0, C) if own is None else own
+    Cl = own.stop - own.start
 
     KdC = Kd.reshape(B, C, Q, D, D)
     KsubC = Ksub.reshape(B, C, Q, D, D)
@@ -582,20 +600,22 @@ def _chunked_factor(Kd, Ksub, Ka, Kc, C: int, inverse: bool = False):
 
     # chunk k's coupling to the previous separator: the previous chunk's
     # last sub-diagonal block (zero for chunk 0)
-    E_prev = _shift_down(KsubC[:, :, Q - 1], 1)
-    Ea = Kd.new_zeros((B, C, Qi, W, D))
-    Ea[:, :, :, 2 * D:, :] = KaC[:, :, :Qi]
+    E_prev = _shift_down(KsubC[:, :, Q - 1], 1)[:, own]
+    Ea = Kd.new_zeros((B, Cl, Qi, W, D))
+    Ea[:, :, :, 2 * D:, :] = KaC[:, own, :Qi]
     Ea[:, :, 0, :D, :] = E_prev.mT
-    Ea[:, :, Qi - 1, D:2 * D, :] = KsubC[:, :, Qi - 1]
+    Ea[:, :, Qi - 1, D:2 * D, :] = KsubC[:, own, Qi - 1]
 
-    Ksub_int = KsubC[:, :, :Qi].clone()
+    Ksub_int = KsubC[:, own, :Qi].clone()
     Ksub_int[:, :, Qi - 1] = 0.0
     if _use_cr(Qi):
-        local, Sacc, ok = cr_chain_factor(KdC[:, :, :Qi], Ksub_int, Ea, inverse)
+        local, Sacc, ok = cr_chain_factor(KdC[:, own, :Qi], Ksub_int, Ea, inverse)
     else:
-        Ls, Cs, Fs, Sacc = chain_factor(KdC[:, :, :Qi], Ksub_int, Ea)
+        Ls, Cs, Fs, Sacc = chain_factor(KdC[:, own, :Qi], Ksub_int, Ea)
         local = (Ls, Cs, Fs)
         ok = _finite(Ls)
+
+    Sacc, ok = gather((Sacc, ok))
 
     S_pp = Sacc[..., :D, :D]
     S_oo = Sacc[..., D:2 * D, D:2 * D]
@@ -615,20 +635,27 @@ def _chunked_factor(Kd, Ksub, Ka, Kc, C: int, inverse: bool = False):
     return (local, cLs, cCs, cFs, cLc), ok
 
 
-def _chunked_solve(factors, vs, vg, T, D, Da):
+def _chunked_solve(factors, vs, vg, T, D, Da, own: Optional[slice] = None,
+                   gather=_all_chunks):
+    """Two-level sweeps with the factors of ``_chunked_factor`` (the same
+    ``own`` and ``gather``): the owned interiors' forward sweeps, the
+    separator chain's solve on the gathered reduced right-hand sides, the
+    owned interiors' backward sweeps, and the interior x gathered whole."""
     local, cLs, cCs, cFs, cLc = factors
     cr = isinstance(local[0], tuple)  # (levels, base) vs (Ls, Cs, Fs)
     B = vs.shape[0]
     C = cLs.shape[-3]
     Q = T // C
     Qi = Q - 1
+    own = slice(0, C) if own is None else own
     vsC = vs.reshape(B, C, Q, D)
 
     if cr:
-        state, gacc = cr_chain_fwd(local, vsC[:, :, :Qi])
+        state, gacc = cr_chain_fwd(local, vsC[:, own, :Qi])
     else:
         Ls, Cs, Fs = local
-        ws, gacc = chain_fwd(Ls, Cs, Fs, vsC[:, :, :Qi])  # gacc (B, C, W)
+        ws, gacc = chain_fwd(Ls, Cs, Fs, vsC[:, own, :Qi])
+    gacc = gather(gacc)  # (B, C, W)
 
     c_rhs = vsC[:, :, Q - 1] - gacc[..., D:2 * D] - _shift_up(gacc[..., :D], 1)
     c_rhs_g = vg - gacc[..., 2 * D:].sum(dim=1)
@@ -639,11 +666,12 @@ def _chunked_solve(factors, vs, vg, T, D, Da):
 
     xa = torch.cat(
         [_shift_down(x_sep, 1), x_sep, xg[:, None, :].expand(B, C, Da)], dim=-1
-    )  # (B, C, W)
+    )[:, own]  # (B, own chunks, W)
     if cr:
         x_int = cr_chain_bwd(local, state, xa)
     else:
-        x_int = chain_bwd(Ls, Cs, Fs, ws, xa)  # (B, C, Qi, D)
+        x_int = chain_bwd(Ls, Cs, Fs, ws, xa)  # (B, own chunks, Qi, D)
+    x_int = gather(x_int)
     xs = torch.cat([x_int, x_sep[:, :, None, :]], dim=2).reshape(B, T, D)
     return xs, xg
 
@@ -652,25 +680,30 @@ def _chunked_solve(factors, vs, vg, T, D, Da):
 # factor / solve registrations
 # ---------------------------------------------------------------------------
 
+def _factor_blocks(data: StageQPData, ks, mixed: bool = False, pre=None):
+    """The condensed blocks (Kd, Ksub, Ka, Kc) a factor starts from:
+    ``mixed`` assembles them in float32 (from ``data32`` when
+    precomputed)."""
+    if not mixed:
+        return _assemble_blocks(data, ks)
+    f32 = torch.float32
+    src = pre.get("data32") if isinstance(pre, dict) else None
+    if src is None:
+        return tuple(k.to(f32) for k in _assemble_blocks(data, ks))
+    ks_f = dataclasses.replace(
+        ks, x_reg=ks.x_reg.to(f32), z_reg_fact=ks.z_reg_fact.to(f32),
+        delta_reg=ks.delta_reg.to(f32),
+    )
+    return _assemble_blocks(src, ks_f)
+
+
 @kkt_mod.factor.register
 def _(data: StageQPData, ks, mixed: bool = False, pre=None, inverse: bool = True):
     """Block Cholesky of the tridiagonal + arrow condensed matrix by the
     scheme ``_use_cr``/``_chunk_count`` select for T.  ``mixed`` assembles
     and factors in float32 (from ``data32`` when precomputed);
     ``inverse`` routes every cyclic-reduction level through K2."""
-    if mixed:
-        f32 = torch.float32
-        src = pre.get("data32") if isinstance(pre, dict) else None
-        if src is not None:
-            ks_f = dataclasses.replace(
-                ks, x_reg=ks.x_reg.to(f32), z_reg_fact=ks.z_reg_fact.to(f32),
-                delta_reg=ks.delta_reg.to(f32),
-            )
-            Kd, Ksub, Ka, Kc = _assemble_blocks(src, ks_f)
-        else:
-            Kd, Ksub, Ka, Kc = (k.to(f32) for k in _assemble_blocks(data, ks))
-    else:
-        Kd, Ksub, Ka, Kc = _assemble_blocks(data, ks)
+    Kd, Ksub, Ka, Kc = _factor_blocks(data, ks, mixed, pre)
     T = data.T
     C = _chunk_count(T)
     if _use_cr(T):

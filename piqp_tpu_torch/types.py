@@ -202,23 +202,34 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+def tree_map(fn, value, *rest):
+    """``fn`` over every tensor of a dataclass (or nested tuple) ``value``
+    and the matching tensors of ``rest`` (values of the same structure).
+    None stays None.  Fields marked ``metadata={"static": True}`` (a
+    process group, a chunk count) are not visited: ``dataclasses.replace``
+    carries them over from ``value``."""
+    if isinstance(value, torch.Tensor):
+        return fn(value, *rest)
+    if value is None:
+        return None
+    if isinstance(value, tuple):
+        return tuple(tree_map(fn, *parts) for parts in zip(value, *rest))
+    if dataclasses.is_dataclass(value):
+        return dataclasses.replace(value, **{
+            f.name: tree_map(fn, getattr(value, f.name), *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(value) if not f.metadata.get("static")
+        })
+    raise TypeError(f"cannot map over {type(value).__name__}")
+
+
 def select(mask: torch.Tensor, new, old):
     """Per-problem choice between two values of the same structure
     (dataclasses, tuples, tensors with a leading batch dimension): problem
     b takes ``new`` where ``mask[b]`` is true.  None stays None."""
-    if isinstance(new, torch.Tensor):
-        m = mask.reshape(mask.shape + (1,) * (new.ndim - 1))
-        return torch.where(m, new, old)
-    if new is None:
-        return None
-    if isinstance(new, tuple):
-        return tuple(select(mask, a, b) for a, b in zip(new, old))
-    if dataclasses.is_dataclass(new):
-        return dataclasses.replace(new, **{
-            f.name: select(mask, getattr(new, f.name), getattr(old, f.name))
-            for f in dataclasses.fields(new)
-        })
-    raise TypeError(f"cannot select over {type(new).__name__}")
+    def pick(a, b):
+        return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b)
+
+    return tree_map(pick, new, old)
 
 
 def max0(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -240,65 +251,31 @@ def min0(v: torch.Tensor) -> torch.Tensor:
 
 def to_device(value, device):
     """Move every tensor of a dataclass (or nested tuple) to ``device``."""
-    if isinstance(value, torch.Tensor):
-        return value.to(device)
-    if value is None:
-        return None
-    if isinstance(value, tuple):
-        return tuple(to_device(v, device) for v in value)
-    return dataclasses.replace(value, **{
-        f.name: to_device(getattr(value, f.name), device)
-        for f in dataclasses.fields(value)
-    })
+    return tree_map(lambda t: t.to(device), value)
 
 
 def index(value, i):
     """Take problem(s) ``i`` (an int or an index tensor) from every tensor
     of a dataclass (or nested tuple); an int drops the batch dimension."""
-    if isinstance(value, torch.Tensor):
-        return value[i]
-    if value is None:
-        return None
-    if isinstance(value, tuple):
-        return tuple(index(v, i) for v in value)
-    return dataclasses.replace(value, **{
-        f.name: index(getattr(value, f.name), i)
-        for f in dataclasses.fields(value)
-    })
+    return tree_map(lambda t: t[i], value)
 
 
 def index_put(value, i, new):
     """``value`` with problems ``i`` (an index tensor) replaced by the
     problems of ``new``, in every tensor of a dataclass (or nested tuple):
     the scatter counterpart of ``index``."""
-    if isinstance(value, torch.Tensor):
-        out = value.clone()
-        out[i] = new
+    def put(t, n):
+        out = t.clone()
+        out[i] = n
         return out
-    if value is None:
-        return None
-    if isinstance(value, tuple):
-        return tuple(index_put(v, i, n) for v, n in zip(value, new))
-    return dataclasses.replace(value, **{
-        f.name: index_put(getattr(value, f.name), i, getattr(new, f.name))
-        for f in dataclasses.fields(value)
-    })
+
+    return tree_map(put, value, new)
 
 
 def concat(values: list):
     """Concatenate dataclasses (or nested tuples) of batched tensors along
     the batch."""
-    first = values[0]
-    if isinstance(first, torch.Tensor):
-        return torch.cat(values, dim=0)
-    if first is None:
-        return None
-    if isinstance(first, tuple):
-        return tuple(concat(list(vs)) for vs in zip(*values))
-    return dataclasses.replace(first, **{
-        f.name: concat([getattr(v, f.name) for v in values])
-        for f in dataclasses.fields(first)
-    })
+    return tree_map(lambda *ts: torch.cat(ts, dim=0), *values)
 
 
 @dataclasses.dataclass

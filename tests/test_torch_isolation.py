@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the
-JAX package, no source file under piqp_tpu_torch/ imports either, and its
-entry points never fall back to the CPU on their own."""
+JAX package and initialises no torch.distributed process group, no source
+file under piqp_tpu_torch/ imports either package, and its entry points
+never fall back to the CPU on their own.  It exports every name the JAX
+package does."""
 
 import pathlib
 import re
@@ -19,7 +21,10 @@ PKG = ROOT / "piqp_tpu_torch"
 
 def test_import_leaves_jax_out():
     code = (
-        "import sys, piqp_tpu_torch, piqp_tpu_torch.convert, piqp_tpu_torch.ops.chol_inv;"
+        "import sys, piqp_tpu_torch, piqp_tpu_torch.convert, piqp_tpu_torch.ops.chol_inv,"
+        " piqp_tpu_torch.parallel, piqp_tpu_torch.utils.pad, piqp_tpu_torch.utils.io,"
+        " piqp_tpu_torch.utils.profiling, torch.distributed as dist;"
+        "assert not dist.is_initialized(), 'importing the port initialised torch.distributed';"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'piqp_tpu' or m.startswith('piqp_tpu.')];"
         "print(bad); sys.exit(1 if bad else 0)"
@@ -29,6 +34,16 @@ def test_import_leaves_jax_out():
         timeout=120,
     )
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_exports_cover_the_jax_package():
+    """Every name the JAX package exports, the port exports too."""
+    import piqp_tpu
+
+    missing = sorted(set(piqp_tpu.__all__) - set(piqp_tpu_torch.__all__))
+    assert missing == []
+    for name in piqp_tpu.__all__:
+        assert hasattr(piqp_tpu_torch, name), name
 
 
 def test_no_source_imports_jax():
