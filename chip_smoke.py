@@ -94,6 +94,18 @@ Phases:
      against phase 7; ``solve_batch(sharding=group)`` on phase 3's fleet,
      identical to phase 3's cold round; K2 launches by route (all small,
      more than 0 at 4 chunks) and the sharded-call counter.
+ 15. the C interface (piqp_tpu_torch/capi/): build_capi.sh builds the
+     library and its C driver; the driver's file-driven mode on CUDA solves
+     phase 3's problem 0 (n = 128) through K1 in float64 (the library's
+     default settings) and mixed precision, through K3 (Np = 256) and with
+     the library factorizations, and phase 8's T = 100 problem as CSC
+     through K2, each cold and warm after an update of c; every C result
+     SOLVED, optimal on the host, and equal to the Python entry's solve in
+     this process (float64: iterations equal, |dx| <= 1e-9; mixed: status
+     equal, |dx| <= 1e-4), whose launches are counted by route; the same
+     runs through the Python entry points in a fresh process, the control
+     for the C calls' seconds; one device-to-host copy a result; then the
+     three examples (examples/torch_*.py) on the card.
 The line before the last lists the kernels as JSON; the last line is the
 device summary.
 """
@@ -595,11 +607,11 @@ def _stage_problem(ms, kw: dict, c=None) -> dict:
     )
 
 
-def _timed(torch, fn):
-    torch.cuda.synchronize()
+def _timed(torch, fn, dev="cuda"):
+    _sync(torch, dev)
     t = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    _sync(torch, dev)
     return out, time.perf_counter() - t
 
 
@@ -1135,6 +1147,254 @@ def _horizon_phase(torch, smi, fleet: dict, dense: dict) -> dict:
     return dict(k2=k2_by_dtype, k1=k1)
 
 
+# phase 15: the C interface's runs on the dense problem (name -> settings
+# fields of piqp_tpu_settings, and the count of repeated cold solves timed
+# after the first).  "startup" is the first call of the C driver's process
+# (interpreter, torch import, CUDA context); "library" takes the library
+# factorizations (pallas_kernels = 0) for contrast
+CAPI_REPEAT = 3
+CAPI_DENSE_RUNS = {
+    "startup": {},
+    "chol": {"repeat": CAPI_REPEAT},
+    "mixed": {"mixed_precision": 1, "repeat": CAPI_REPEAT},
+    "ldlt": {"kkt_solver": 7, "repeat": CAPI_REPEAT},
+    "library": {"pallas_kernels": 0},
+}
+CAPI_SPARSE_RUNS = {"multistage": {"kkt_solver": 5, "repeat": CAPI_REPEAT}}
+CAPI_F64_TOL = 1e-9
+
+
+def _load_example(name: str):
+    """Import examples/<name>.py of this checkout."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _count_dtoh(torch, fn) -> int:
+    """Copies from a CUDA tensor to the host among the aten operations of
+    ``fn`` (a ``TorchDispatchMode`` sees every one of them)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Count(TorchDispatchMode):
+        copies = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(isinstance(t, torch.Tensor) and t.is_cuda for t in tree_leaves((args, kwargs))):
+                outs = tree_leaves(out)
+                if not any(isinstance(t, torch.Tensor) and t.is_cuda for t in outs):
+                    Count.copies += 1  # a host tensor or a Python scalar from the card
+            return out
+
+    with Count():
+        fn()
+    return Count.copies
+
+
+def _capi_phase(torch, smi, dense_prob: dict, dense_c: np.ndarray, stage_prob: dict,
+                stage_c: np.ndarray, dev: str = "cuda") -> dict:
+    """Phase 15: the port's C interface and examples on the card.  Builds
+    the C library and driver (piqp_tpu_torch/capi/build_capi.sh), runs the
+    driver's file-driven mode on CUDA in a subprocess (the dense problem
+    through K1 in float64 and mixed precision, through K3, and with the
+    library factorizations; the multistage problem through K2; each cold,
+    repeated, then warm after an update of c), and the same runs through
+    the Python entry points in a second fresh process (the control of the
+    timings).  Holds every C result against the host KKT check and the
+    same solve through the Python entry point in this process, whose kernel
+    launches are counted by route, and runs the three examples.  Returns
+    the in-process launches by kernel.  With ``dev="cpu"`` it rehearses
+    the phase on the CPU (no launches to count)."""
+    import dataclasses
+    import os
+    import shutil
+
+    import scipy.sparse as sp
+
+    from piqp_tpu_torch import DenseSolver, Info, Result, SparseSolver
+    from piqp_tpu_torch.capi import pack_result, read_run, settings_from_fields, write_problem
+    from piqp_tpu_torch.ops import chol_inv, signed_chol_inv
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "piqp_tpu_torch", "capi")
+    t = time.perf_counter()
+    build = subprocess.run(["sh", os.path.join(root, "piqp_tpu_torch", "capi", "build_capi.sh")],
+                           capture_output=True, text=True, timeout=300)
+    build_s = time.perf_counter() - t
+    if build.returncode != 0:
+        raise AssertionError(f"build_capi.sh failed:\n{build.stdout}\n{build.stderr}")
+    print(f"[capi] build_capi.sh (g++ and gcc, no nvcc) {build_s:.2f} s: "
+          f"{build.stdout.strip()}")
+
+    work = os.path.join(out_dir, "phase15")
+    shutil.rmtree(work, ignore_errors=True)
+    dirs = {"dense": os.path.join(work, "dense"), "sparse": os.path.join(work, "sparse")}
+    dims = {"dense": write_problem(dirs["dense"], dense_prob, c_update=dense_c,
+                                   runs=CAPI_DENSE_RUNS),
+            "sparse": write_problem(dirs["sparse"], stage_prob, sparse=True, c_update=stage_c,
+                                    runs=CAPI_SPARSE_RUNS)}
+    env = dict(os.environ)
+    site = [p for p in sys.path if p.endswith("site-packages")]
+    env["PYTHONPATH"] = os.pathsep.join([root] + site)
+    control = ("import sys; from piqp_tpu_torch.capi import run_files; "
+               "sys.exit(run_files(sys.argv[1], sys.argv[2:]))")
+    process_s = {}
+    for label, cmd in (("C", [os.path.join(out_dir, "test_capi")]),
+                       ("Python", [sys.executable, "-c", control])):
+        t = time.perf_counter()
+        run = subprocess.run(cmd + [dev, dirs["dense"], dirs["sparse"]], capture_output=True,
+                             text=True, env=env, timeout=600)
+        process_s[label] = time.perf_counter() - t
+        for line in run.stdout.strip().splitlines():
+            print(f"[capi {label} process] {line}")
+        if run.returncode != 0:
+            raise AssertionError(f"the {label} process exited {run.returncode}:\n"
+                                 f"{run.stderr[-4000:]}")
+    print(f"[capi] the C driver's process {process_s['C']:.2f} s, the Python control's "
+          f"{process_s['Python']:.2f} s ({len(CAPI_DENSE_RUNS) + len(CAPI_SPARSE_RUNS)} runs "
+          f"each, host clock, start-up included)")
+    tables = {"dense": CAPI_DENSE_RUNS, "sparse": CAPI_SPARSE_RUNS}
+    c_runs = {name: read_run(dirs[kind], name, *dims[kind])
+              for kind, table in tables.items() for name in table}
+    py_runs = {name: read_run(dirs[kind], f"py-{name}", *dims[kind])
+               for kind, table in tables.items() for name in table}
+
+    # the same solves through the Python entry point in this process, with
+    # the kernels' launches counted
+    keys = ("x", "y", "z_l", "z_u", "z_bl", "z_bu")
+    csc = {k: sp.csc_matrix(stage_prob[k]) for k in ("P", "A", "G")}
+    problems = {"dense": (DenseSolver, dense_prob, dense_c),
+                "sparse": (SparseSolver, dict(stage_prob, **csc), stage_c)}
+    launches, py = {}, {}
+    for kind, table in tables.items():
+        cls, prob, c2 = problems[kind]
+        for name, fields in table.items():
+            if name == "startup":
+                continue
+            settings = settings_from_fields({k: v for k, v in fields.items() if k != "repeat"})
+            _reset_counts()
+            solver = cls(settings, device=dev)
+            solver.setup(**prob)
+            status = int(solver.solve())
+            if kind == "sparse" and solver._stage_data is None:
+                raise AssertionError("the multistage problem did not take the multistage route")
+            cold = {k: getattr(solver.result, k).double().cpu().numpy() for k in keys}
+            cold_iter = int(solver.result.info.iter)
+            solver.update(c=c2)
+            wstatus = int(solver.solve(warm_start=True))
+            warm = {k: getattr(solver.result, k).double().cpu().numpy() for k in keys}
+            py[name] = dict(status=status, iter=cold_iter, cold=cold, warm_status=wstatus,
+                            warm_iter=int(solver.result.info.iter), warm=warm, solver=solver)
+            launches[name] = {
+                "K1": dict(chol_inv.launches_by_route),
+                "K2": dict(chol_inv.apply_launches_by_route),
+                "K3": dict(signed_chol_inv.launches_by_route),
+                "K1_dtype": dict(chol_inv.launches_by_dtype),
+                "K2_dtype": dict(chol_inv.apply_launches_by_dtype),
+                "K3_dtype": dict(signed_chol_inv.launches_by_dtype),
+            }
+    expect = {"chol": ("K1", "resident"), "mixed": ("K1", "resident"),
+              "ldlt": ("K3", "resident"), "multistage": ("K2", "small")}
+    for name, (kernel, route) in expect.items():
+        counts = launches[name][kernel]
+        print(f"[capi] Python entry '{name}' in this process, cold + warm: {kernel} launches "
+              f"by route {counts}; all K1 {launches[name]['K1']}, K2 {launches[name]['K2']}, "
+              f"K3 {launches[name]['K3']}")
+        if dev == "cuda" and not (counts[route] > 0 and sum(counts.values()) == counts[route]):
+            raise AssertionError(f"the Python entry's '{name}' solve did not launch {kernel} "
+                                 f"on its {route} route: {counts}")
+    if any(sum(launches["library"][k].values()) for k in ("K1", "K2", "K3")):
+        raise AssertionError(f"pallas_kernels=False launched a kernel: {launches['library']}")
+
+    # every C result: SOLVED, optimal on the host, equal to the Python entry
+    probs = {"dense": (dense_prob, dict(dense_prob, c=dense_c)),
+             "sparse": (stage_prob, dict(stage_prob, c=stage_c))}
+    for name, c_run in c_runs.items():
+        ref = py["chol" if name == "startup" else name]
+        kind = "sparse" if name in CAPI_SPARSE_RUNS else "dense"
+        mixed = name == "mixed"
+        for phase, key, prob in (("cold", "", probs[kind][0]), ("warm", "warm_", probs[kind][1])):
+            status, it = c_run[f"{key}status"], c_run[f"{key}iter"]
+            viol = _optimality(prob, *(c_run[phase][k] for k in keys))
+            dx = float(np.abs(c_run[phase]["x"] - ref[phase]["x"]).max())
+            same = bool(np.array_equal(c_run[phase]["x"], ref[phase]["x"]))
+            same_py = bool(np.array_equal(c_run[phase]["x"], py_runs[name][phase]["x"]))
+            tol = XCHECK_MIXED_TOL if mixed else CAPI_F64_TOL
+            print(f"[capi {name} {phase}] status {status}, {it} iterations (Python entry "
+                  f"{ref[f'{key}status']}, {ref[f'{key}iter']}), host KKT {viol:.2e}, "
+                  f"|x_C - x_py| {dx:.3e} (limit {tol:.0e}), bitwise equal {same}; to the "
+                  f"Python control process {same_py}")
+            if not (status == 1 and viol <= OPT_TOL and dx <= tol
+                    and ref[f"{key}status"] == status
+                    and (mixed or it == ref[f"{key}iter"])):
+                raise AssertionError(f"C interface '{name}' {phase} disagrees with the Python "
+                                     f"entry or is not optimal")
+    lib_dx = float(np.abs(c_runs["library"]["cold"]["x"] - py["chol"]["cold"]["x"]).max())
+    print(f"[capi] C defaults (pallas_kernels -1) vs the Python default: iterations "
+          f"{c_runs['chol']['iter']} / {py['chol']['iter']}, x bitwise equal "
+          f"{bool(np.array_equal(c_runs['chol']['cold']['x'], py['chol']['cold']['x']))}; "
+          f"the library route (pallas_kernels 0) lies {lib_dx:.3e} from the kernels' x")
+
+    # the C layer's cost a call: the C process against the Python control
+    # process, each fresh and running the same calls in the same order (the
+    # first solve of a run is its process's first of that kind; the
+    # repeated solve is the median of CAPI_REPEAT more)
+    for name in ("chol", "mixed", "ldlt", "multistage"):
+        c_s, p_s = c_runs[name]["seconds"], py_runs[name]["seconds"]
+        print(f"[capi time {name}] C / Python ms: " + ", ".join(
+            f"{k} {c_s[k] * 1e3:.3f} / {p_s[k] * 1e3:.3f} ({(c_s[k] - p_s[k]) * 1e3:+.3f})"
+            for k in ("setup", "solve", "repeat_solve", "update", "warm_solve")) + f"; {smi}")
+    with open("/proc/self/maps") as maps:
+        shared = "libpython" in maps.read()
+    print(f"[capi] the Python processes' interpreter {sys.executable} is "
+          f"{'the shared libpython' if shared else 'statically linked'}; the C driver embeds "
+          f"the shared libpython that python3-config names")
+    c_st, p_st = c_runs["startup"]["seconds"], py_runs["startup"]["seconds"]
+    print(f"[capi time startup] the C process's first setup {c_st['setup']:.3f} s (interpreter, "
+          f"torch import, CUDA context) and solve {c_st['solve']:.3f} s; the Python control's "
+          f"{p_st['setup']:.3f} s (CUDA context; its imports came before) and "
+          f"{p_st['solve']:.3f} s; {smi}")
+
+    # the C layer reads a result back in one device-to-host copy
+    vectors = tuple(f.name for f in dataclasses.fields(Result) if f.name != "info")
+    info = tuple(f.name for f in dataclasses.fields(Info))
+    result = py["chol"]["solver"].result
+    copies = _count_dtoh(torch, lambda: pack_result(result, vectors, info))
+    pack_s = statistics.median(_timed(torch, lambda: pack_result(result, vectors, info), dev)[1]
+                               for _ in range(20))
+    print(f"[capi] pack_result of an n = {MAIN_N} result: {copies} copies to the host, "
+          f"{pack_s * 1e3:.3f} ms (median of 20, host clock); {smi}")
+    if dev == "cuda" and copies != 1:
+        raise AssertionError(f"pack_result made {copies} copies to the host, not 1")
+
+    # the examples on the card
+    for name in ("torch_batch_example", "torch_mpc_example", "torch_diff_mpc_example"):
+        example = _load_example(name)
+        _reset_counts()
+        t = time.perf_counter()
+        out = example.main(device=dev)
+        secs = time.perf_counter() - t
+        if name == "torch_diff_mpc_example" and not out["losses"][-1] < out["losses"][0]:
+            raise AssertionError("the learned weights did not move the loss down")
+        summary = {"torch_batch_example": lambda o: f"{int((o['status'] == 1).sum())} + "
+                                                    f"{int((o['warm_status'] == 1).sum())} SOLVED",
+                   "torch_mpc_example": lambda o: f"tracking errors {np.round(o['tracking'], 4)}",
+                   "torch_diff_mpc_example": lambda o: f"loss {o['losses'][0]:.3e} -> "
+                                                       f"{o['final_loss']:.3e}"}[name](out)
+        print(f"[example {name}] {secs:.2f} s, {summary}; K1 launches by route "
+              f"{dict(chol_inv.launches_by_route)}, K2 {dict(chol_inv.apply_launches_by_route)}")
+        launches[name] = {"K1": dict(chol_inv.launches_by_route),
+                          "K2": dict(chol_inv.apply_launches_by_route)}
+    return launches
+
+
 def _xcheck(label, cpu, gpu, mixed: bool) -> None:
     """CPU (plain versions) against the card on the same problems."""
     same_status = cpu.info.status.tolist() == gpu.info.status.cpu().tolist()
@@ -1567,6 +1827,19 @@ def main() -> int:
         if entry["name"].startswith("chol_inv_apply_"):
             entry["horizon_launches"] = hz["k2"][entry["name"].removeprefix("chol_inv_apply_")]
     print(f"[phase 14] {time.perf_counter() - t_new:.1f} s")
+
+    # ---- 15. the C interface and the examples
+    t_new = time.perf_counter()
+    capi = _capi_phase(torch, smi, problems[0], moved[0]["c"], prob0, prob0["c"] + dc[0])
+    for entry in kernels:
+        for prefix, kernel, cases in (("chol_inv_apply_", "K2", ("multistage",)),
+                                      ("signed_chol_inv_", "K3", ("ldlt",)),
+                                      ("chol_inv_", "K1", ("chol", "mixed"))):
+            if entry["name"].startswith(prefix):
+                dtype = entry["name"].removeprefix(prefix)
+                entry["capi_launches"] = sum(capi[c][f"{kernel}_dtype"][dtype] for c in cases)
+                break
+    print(f"[phase 15] {time.perf_counter() - t_new:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(f"[device] {smi}")

@@ -135,6 +135,11 @@ class HostInfo:
     dual_res_reg_rel: float = np.inf
     primal_prox_inf: float = 0.0
     dual_prox_inf: float = 0.0
+    # the rest of the device Info's fields, so that the host route's info
+    # has every field of results.hpp:44-89 (the C interface reads them all)
+    prev_primal_res: float = np.inf
+    prev_dual_res: float = np.inf
+    reg_limit: float = 0.0
     # wall-time metrics (results.hpp:83-88); filled by the API wrapper
     setup_time: float = 0.0
     update_time: float = 0.0
@@ -914,6 +919,7 @@ def solve_host(
     t_start = time.perf_counter()
 
     def _fill_times():
+        info.reg_limit = reg_limit
         info.solve_time = time.perf_counter() - t_start
         info.run_time = info.solve_time
         info.kkt_factor_time = kkt.factor_time
@@ -1150,6 +1156,7 @@ def solve_host(
 
     res_nr = residuals_nr()
     prev_primal_res, prev_dual_res = info.primal_res, info.dual_res
+    info.prev_primal_res, info.prev_dual_res = prev_primal_res, prev_dual_res
 
     eps = float(np.finfo(np.float64).eps)
     st = settings
@@ -1325,6 +1332,7 @@ def solve_host(
             mu_rate = None  # equality-only uses fixed factors below
 
         prev_primal_res, prev_dual_res = info.primal_res, info.dual_res
+        info.prev_primal_res, info.prev_dual_res = prev_primal_res, prev_dual_res
         res_nr = residuals_nr()
 
         # proximal updates (solver.hpp:794-829 / 831-877)

@@ -71,6 +71,23 @@ class KKTBackend(enum.Enum):
     multistage = "multistage"
     sparse_host = "sparse_host"
 
+    @classmethod
+    def from_piqp(cls, name: str) -> "KKTBackend":
+        """The backend for a PIQP KKTSolver name (settings.hpp:18-26), as
+        ``piqp_tpu.KKTBackend.from_piqp`` maps it: ``sparse_ldlt`` (the
+        full KKT) -> ``sparse_host``, the three partial eliminations ->
+        ``dense_cholesky`` (they condense to the same n x n system),
+        ``sparse_multistage`` -> ``multistage``; the port's own names map
+        to themselves."""
+        aliases = {
+            "sparse_ldlt": cls.sparse_host,
+            "sparse_ldlt_eq_cond": cls.dense_cholesky,
+            "sparse_ldlt_ineq_cond": cls.dense_cholesky,
+            "sparse_ldlt_cond": cls.dense_cholesky,
+            "sparse_multistage": cls.multistage,
+        }
+        return aliases[name] if name in aliases else cls(name)
+
 
 @dataclasses.dataclass(frozen=True)
 class Settings:
