@@ -13,13 +13,17 @@ result.
 Phases:
   1. device and build: card name and power limit, versions, nvcc time;
   2. K1 (Cholesky with inverse) against its plain version, float32 and
-     float64, at n in {8, 33, 64, 128, 169, 170, 200, 240, 241, 256}
-     (B = 5; both sides of each dtype's limit between the resident and the
-     streamed kernel) and at the main path's shape B = 1024, n = 128, each
-     launch checked to take the route ``kernel_route`` names; indefinite
-     input on each route; times of the resident kernel, the streamed one
-     (through its private launcher), the plain version and the library at
-     the main path's shape, and bounds;
+     float64, at n in {8, 33, 64, 128, 169, 170, 200, 225, 226, 240, 241,
+     256} (B = 5; both sides of each dtype's limit between the resident
+     and the cluster route, and of each cluster-size limit), at every n of
+     the cluster route (B = 3), at the main path's shape B = 1024,
+     n = 128 and at the n = 256 fleet's B = 256, n = 256, each launch
+     checked to take the route ``kernel_route`` and the cluster size
+     ``cluster_size`` name; indefinite input on the resident route and on
+     each cluster size; times of the resident kernel, the plain version
+     and the library at the main path's shape, of the cluster kernel, K3's
+     kernel with every sign +1, the plain version and the library at
+     B = 256, n = 256, and bounds;
   2b. K2 (Cholesky with inverse and apply) and K3 (signed Cholesky with
      inverse) against their plain versions, float32 and float64.  K2 at
      D in {4, 8, 16, 33, 64, 128} (N = 5, R = 2D + 4), at
@@ -31,7 +35,9 @@ Phases:
      and as the last group of a warp; at the two large shapes the small
      kernel's device time (a CUDA graph of launches) with warm and cold L2,
      its looped time, the general kernel's, and at the fleet's shape the
-     plain version's and the library's.  K3 at
+     plain version's and the library's; the general kernel at its own
+     shapes, N = 2,560, D in {48, 64}, R = 2D + 4, against the library
+     route (both products included) and the bound.  K3 at
      Np in {64, 128, 168, 169, 192, 224, 225, 239, 240, 256} (B = 5, mixed
      sign patterns; both sides of each dtype's cluster-size limits) and at
      the dense_ldlt fleet's shape B = 256, Np = 256, each launch checked to
@@ -105,7 +111,16 @@ Phases:
      equal, |dx| <= 1e-4), whose launches are counted by route; the same
      runs through the Python entry points in a fresh process, the control
      for the C calls' seconds; one device-to-host copy a result; then the
-     three examples (examples/torch_*.py) on the card.
+     three examples (examples/torch_*.py) on the card;
+ 16. the n = 256 dense fleet: 256 problems dense_strongly_convex_qp(256,
+     128, 128, seed=1000+i) (benchmarks/make_batch.py's batch_problems(256,
+     256)), mixed cold and one warm round after c += 1e-3 N(0, 1), and a
+     float64 cold round of the first 64, every K1 launch on the cluster
+     route (2-block clusters in float32, 3-block in float64); problems 0-1
+     again on the CPU (float64: equal iterations, |dx| <= 1e-9; mixed:
+     equal status, |dx| <= 1e-4); one float64 DenseSolver at n = 200
+     (p = m = 100; cluster route, 2 blocks), cold and warm; a profile of
+     the fleet's warm round.
 The line before the last lists the kernels as JSON; the last line is the
 device summary.
 """
@@ -126,8 +141,17 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 
 MAIN_B, MAIN_N, MAIN_P, MAIN_M = 1024, 128, 64, 64
-K1_SHAPES = [(5, 8), (5, 33), (5, 64), (5, 128), (5, 169), (5, 170), (5, 200), (5, 240),
-             (5, 241), (5, 256), (MAIN_B, MAIN_N)]
+# phase 16: the n = 256 dense fleet (benchmarks/make_batch.py's
+# batch_problems(256, 256), p = m = n / 2), above K1's resident limit in
+# both dtypes, its float64 batch, and one float64 DenseSolver at n = 200,
+# above the limit in float64 alone (the C interface's default type)
+N256_B, N256_N, N256_B64 = 256, 256, 64
+N200 = 200
+# K1's (B, n): both sides of the resident limit (169/170 float64, 240/241
+# float32) and of the float64 cluster-size limit (225/226: 2 / 3 blocks),
+# the main path's shape and the n = 256 fleet's
+K1_SHAPES = [(5, 8), (5, 33), (5, 64), (5, 128), (5, 169), (5, 170), (5, 200), (5, 225),
+             (5, 226), (5, 240), (5, 241), (5, 256), (MAIN_B, MAIN_N), (N256_B, N256_N)]
 K1_TOL = {"float32": 5e-5, "float64": 1e-11}
 # K2's Y = K^-1 RHS against its plain version, relative to max |Y_ref|
 K2_Y_RTOL = {"float32": 1e-5, "float64": 1e-13}
@@ -154,10 +178,13 @@ CFG4_SEED = 4
 K2_HORIZON = sorted({(b * 4 * h, MS_D, 4 * MS_D + MS_DA)
                      for b in (1, MS_B) for h in (12, 6, 3, 1)}
                     | {(K2_RAGGED_N, MS_D, 4 * MS_D + MS_DA)})
+# the general kernel's own timed shapes (D > 32, where the small kernel
+# stops): 2,560 blocks, R = 2D + 4
+K2_GENERAL_TIMED = [(2560, D, 2 * D + 4) for D in (48, 64)]
 K2_SHAPES = ([(5, D, 2 * D + 4) for D in (4, 8, 16, 33, 64, 128)]
              + [(K2_RAGGED_N, D, R) for D in (1, 4, 7, 8, 9, 16, 23, 31, 32)
                 for R in (3, 2 * D + 4)]
-             + [K2_FLEET, K2_D23] + K2_HORIZON)
+             + [K2_FLEET, K2_D23] + K2_HORIZON + K2_GENERAL_TIMED)
 # rotated input sets of the cold-L2 timing: more than the 50 MB L2 holds
 K2_COLD_SETS = 8
 K3_SHAPES = [(5, 64), (5, 128), (5, 168), (5, 169), (5, 192), (5, 224), (5, 225), (5, 239),
@@ -190,6 +217,9 @@ SQP_ROUNDS = 4
 # these problems the JAX package's own mixed run and the port's CPU run
 # differ by up to 1.7e-5 in x
 XCHECK_MIXED_TOL = 1e-4
+# x of a float64 solve on the CPU vs the card at n = 256 and 200: both
+# follow the same trajectory (equal iterations), so x agrees to rounding
+XCHECK_F64_TOL = 1e-9
 # two mixed-precision solves of one fleet by different factorizations (the
 # horizon-sharded fleet against phase 7), each stopping near, not at, the
 # float64 optimum: scripts/horizon_fleet.py finds the phase-7 fleet's mixed
@@ -318,6 +348,7 @@ def _reset_counts() -> None:
     from piqp_tpu_torch.ops import chol_inv, signed_chol_inv
 
     for counts in (chol_inv.launches_by_dtype, chol_inv.launches_by_route,
+                   chol_inv.launches_by_cluster,
                    chol_inv.apply_launches_by_dtype, chol_inv.apply_launches_by_route,
                    signed_chol_inv.launches_by_dtype,
                    signed_chol_inv.launches_by_route, signed_chol_inv.launches_by_cluster):
@@ -476,6 +507,31 @@ def _check_k2(torch, smi) -> list:
                 print(f"[K2 {name}] N={N} D={D} R={R}: plain {t['plain_ms']:.4f} ms, library "
                       f"{t['library_ms']:.4f} ms; {smi}")
             timed[D] = t
+        # the general kernel at its own shapes against the library route
+        general = {}
+        for N, D, R in K2_GENERAL_TIMED:
+            K, RHS = _apply_batch(torch, N, D, R, dtype, seed=7)
+            if chol_inv.apply_kernel_route(D, dtype, R) != "general":
+                raise AssertionError(f"K2 {name} D={D} R={R} is not routed to the general kernel")
+            eye = torch.eye(D, dtype=dtype, device="cuda").expand_as(K)
+
+            def library():
+                Lc = torch.linalg.cholesky_ex(K)[0]
+                Li = torch.linalg.solve_triangular(Lc, eye, upper=False)
+                return Li.mT @ (Li @ RHS)
+
+            kernel = lambda: chol_inv.cholesky_inverse_apply(K, RHS)
+            g = dict(ms=_graph_ms(torch, [kernel]), looped_ms=_time_ms(torch, kernel),
+                     library_ms=_time_ms(torch, library))
+            g["bound_ms"], g["bound_by"] = _bound(
+                name, (_factor_elements(N, D) + 2 * N * D * R) * K.element_size(),
+                N * (2 * D ** 3 / 3 + 2 * D * D * R))
+            print(f"[K2 {name}] general N={N} D={D} R={R}: kernel device {g['ms']:.4f} ms, "
+                  f"looped {g['looped_ms']:.4f} ms; library route looped {g['library_ms']:.4f} ms "
+                  f"(library/kernel looped {g['library_ms'] / g['looped_ms']:.2f}x); bound "
+                  f"{g['bound_ms'] * 1e3:.2f} us ({g['bound_by']}), device/bound "
+                  f"{g['ms'] / g['bound_ms']:.2f}x; {smi}")
+            general[D] = g
         fleet = timed[K2_FLEET[1]]
         entries.append(dict(
             name=f"chol_inv_apply_{name}", route="cuda", kernel_route="small",
@@ -485,7 +541,7 @@ def _check_k2(torch, smi) -> list:
             looped_ms=fleet["looped_ms"], general_ms=fleet["general_ms"],
             library_ms=fleet["library_ms"], plain_ms=fleet["plain_ms"],
             bound_ms=fleet["bound_ms"], bound_by=fleet["bound_by"],
-            d23=timed[K2_D23[1]],
+            d23=timed[K2_D23[1]], general_timed=general,
         ))
     return entries
 
@@ -1395,16 +1451,128 @@ def _capi_phase(torch, smi, dense_prob: dict, dense_c: np.ndarray, stage_prob: d
     return launches
 
 
-def _xcheck(label, cpu, gpu, mixed: bool) -> None:
-    """CPU (plain versions) against the card on the same problems."""
+def _xcheck(label, cpu, gpu, mixed: bool, tol=None, same_iter=False) -> None:
+    """CPU (plain versions) against the card on the same problems: equal
+    status (and, with ``same_iter``, equal iterations) and x within ``tol``
+    (XCHECK_MIXED_TOL for mixed precision, else 1e-6 unless given)."""
     same_status = cpu.info.status.tolist() == gpu.info.status.cpu().tolist()
+    same_it = cpu.info.iter.tolist() == gpu.info.iter.cpu().tolist()
     dx = (cpu.x - gpu.x.cpu()).abs().max().item()
-    tol = XCHECK_MIXED_TOL if mixed else 1e-6
+    if tol is None:
+        tol = XCHECK_MIXED_TOL if mixed else 1e-6
     print(f"[cross-check {label}] on the CPU: status equal {same_status}, max "
           f"|x_cpu - x_gpu| {dx:.3e} (limit {tol:.0e}), iterations cpu "
           f"{cpu.info.iter.tolist()} gpu {gpu.info.iter.cpu().tolist()}")
-    if not (same_status and dx <= tol):
+    if not (same_status and dx <= tol and (same_it or not same_iter)):
         raise AssertionError(f"the {label} CPU cross-check disagrees with the card")
+
+
+def _dense256_phase(torch, smi) -> dict:
+    """Phase 16: the n = 256 dense fleet, mixed cold and one warm round (and
+    a profile of the warm round) and a float64 cold round of 64, every K1
+    launch on the cluster route; problems 0-1 again on the CPU; a float64
+    DenseSolver at n = 200.
+    Returns the fleet's mixed rounds' K1 launches by dtype, route and
+    cluster size."""
+    from piqp_tpu_torch import (
+        DenseSolver, Settings, Status, prepare_batch, solve_batch, warm_from_result,
+    )
+    from piqp_tpu_torch.ops import chol_inv
+    from piqp_tpu_torch.types import index
+    from piqp_tpu_torch.utils.random import dense_strongly_convex_qp
+
+    B, n = N256_B, N256_N
+    t0 = time.perf_counter()
+    problems = [dense_strongly_convex_qp(n, n // 2, n // 2, seed=1000 + i) for i in range(B)]
+    rng = np.random.default_rng(2026)
+    moved = [dict(p, c=p["c"] + 1e-3 * rng.standard_normal(n)) for p in problems]
+    data, data_w = prepare_batch(problems, device="cuda"), prepare_batch(moved, device="cuda")
+    _sync(torch, "cuda")
+    print(f"[n256] prepared {B} problems n={n} p={n // 2} m={n // 2} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    mixed, f64 = Settings(mixed_precision=True), Settings()
+    solve_batch(prepare_batch(problems[:2], device="cuda"), mixed)  # warm-up
+
+    def k1_counts():
+        return (dict(chol_inv.launches_by_dtype), dict(chol_inv.launches_by_route),
+                dict(chol_inv.launches_by_cluster))
+
+    def check_cluster(label, counts, want_clusters):
+        """Every K1 launch of a run on the cluster route with the cluster
+        sizes ``want_clusters`` (dtype -> size) names, > 0 in each dtype."""
+        by_dtype, by_route, by_cluster = counts
+        want = {c: sum(by_dtype[d] for d, k in want_clusters.items() if k == c)
+                for c in by_cluster}
+        print(f"[n256] {label}: K1 launches by dtype {by_dtype}, by route {by_route}, "
+              f"by cluster size {by_cluster}")
+        if not (all(by_dtype[d] > 0 for d in want_clusters)
+                and by_route == {"resident": 0, "cluster": sum(by_dtype.values())}
+                and by_cluster == want):
+            raise AssertionError(f"{label}: K1 launches must all take the cluster route "
+                                 f"with clusters {want_clusters}, > 0 per dtype")
+
+    clusters = {str(dt).removeprefix("torch."): chol_inv.cluster_size(n, dt)
+                for dt in (torch.float32, torch.float64)}
+    _reset_counts()
+    cold, cold_s = _timed(torch, lambda: solve_batch(data, mixed))
+    warm_pt = warm_from_result(cold)
+    warm, warm_s = _timed(torch, lambda: solve_batch(data_w, mixed, warm=warm_pt))
+    launches = k1_counts()
+    check_cluster("mixed cold + warm", launches, clusters)
+    for label, res, secs, probs in (("cold", cold, cold_s, problems),
+                                    ("warm", warm, warm_s, moved)):
+        viol = _check_round(probs, res, f"n = 256 mixed {label}")
+        it = res.info.iter.cpu().numpy()
+        print(f"[n256 {label}] {B}/{B} SOLVED, {B / secs:.1f} solves/s ({secs * 1e3:.1f} ms, "
+              f"host clock), iterations median {np.median(it):.1f} max {it.max()}, worst KKT "
+              f"violation {viol:.2e}; {smi}")
+
+    _profile_round(torch, "n256 warm", lambda: solve_batch(data_w, mixed, warm=warm_pt),
+                   warm_s, smi, ("chol_inv_cluster_kernel",))
+
+    _reset_counts()
+    sub = problems[:N256_B64]
+    res64, secs = _timed(torch, lambda: solve_batch(prepare_batch(sub, device="cuda"), f64))
+    check_cluster("float64 cold", k1_counts(), {"float64": clusters["float64"]})
+    viol = _check_round(sub, res64, "n = 256 float64")
+    print(f"[n256 f64] B={N256_B64} {N256_B64}/{N256_B64} SOLVED, {N256_B64 / secs:.1f} "
+          f"solves/s ({secs * 1e3:.1f} ms, host clock), iterations max "
+          f"{int(res64.info.iter.max())}, worst KKT {viol:.2e}; {smi}")
+
+    # problems 0-1 again on the CPU (plain versions): float64 follows the
+    # same trajectory (equal iterations); mixed precision rounds its
+    # float32 phase differently on each device
+    _xcheck("n256 float64, problems 0-1",
+            solve_batch(prepare_batch(problems[:2], device="cpu"), f64),
+            index(res64, slice(0, 2)), mixed=False, tol=XCHECK_F64_TOL, same_iter=True)
+    _xcheck("n256 mixed, problems 0-1",
+            solve_batch(prepare_batch(problems[:2], device="cpu"), mixed),
+            index(cold, slice(0, 2)), mixed=True)
+
+    # a float64 DenseSolver at n = 200: the cluster route in float64 only
+    prob = dense_strongly_convex_qp(N200, N200 // 2, N200 // 2, seed=200)
+    c_moved = prob["c"] + 1e-3 * rng.standard_normal(N200)
+    _reset_counts()
+    solver = DenseSolver(f64, device="cuda")
+    solver.setup(**prob)
+    status_cold = solver.solve()
+    it_cold = int(solver.result.info.iter)
+    viol_cold = _optimality(prob, *(getattr(solver.result, k).cpu().numpy()
+                                    for k in ("x", "y", "z_l", "z_u", "z_bl", "z_bu")))
+    solver.update(c=c_moved)
+    status_warm = solver.solve(warm_start=True)
+    r = solver.result
+    viol_warm = _optimality(dict(prob, c=c_moved), *(getattr(r, k).cpu().numpy()
+                                                    for k in ("x", "y", "z_l", "z_u", "z_bl",
+                                                              "z_bu")))
+    print(f"[n200 f64] DenseSolver(device='cuda') n={N200} p=m={N200 // 2}: cold "
+          f"{status_cold.name} in {it_cold} iterations, KKT {viol_cold:.2e}; update(c) + warm "
+          f"{status_warm.name} in {int(r.info.iter)} iterations, KKT {viol_warm:.2e}")
+    check_cluster("n = 200 float64 DenseSolver", k1_counts(),
+                  {"float64": chol_inv.cluster_size(N200, torch.float64)})
+    if not (status_cold == status_warm == Status.SOLVED and max(viol_cold, viol_warm) <= OPT_TOL):
+        raise AssertionError("the n = 200 float64 DenseSolver did not solve to the KKT limit")
+    return dict(zip(("by_dtype", "by_route", "by_cluster"), launches))
 
 
 def main() -> int:
@@ -1453,8 +1621,9 @@ def main() -> int:
         eye = torch.eye(n, dtype=K.dtype, device="cuda")
         err_I = (L @ Linv - eye).abs().max().item()
         err_Li = (Linv - Linv_ref).abs().max().item()
-        print(f"[K1 {name}] {what} B={K.shape[0]} n={n}: |L-L_ref| {err_L:.3e} "
-              f"|Linv-Linv_ref| {err_Li:.3e} |L Linv - I| {err_I:.3e}")
+        if what:
+            print(f"[K1 {name}] {what} B={K.shape[0]} n={n}: |L-L_ref| {err_L:.3e} "
+                  f"|Linv-Linv_ref| {err_Li:.3e} |L Linv - I| {err_I:.3e}")
         if not (err_L <= tol * max(1.0, L_ref.abs().max().item())
                 and err_Li <= tol * Linv_ref.abs().max().item()
                 and err_I <= 50 * tol):
@@ -1465,26 +1634,45 @@ def main() -> int:
         return max(err_L, err_Li)
 
     def k1_routed(K):
-        """cholesky_with_inverse, checked to launch the route kernel_route names."""
-        route = chol_inv.kernel_route(K.shape[-1], K.dtype)
-        before = dict(chol_inv.launches_by_route)
+        """cholesky_with_inverse, checked to launch the route kernel_route
+        names, on the cluster route with the cluster size cluster_size names;
+        returns the route's label, L and Linv."""
+        n = K.shape[-1]
+        route = chol_inv.kernel_route(n, K.dtype)
+        cluster = chol_inv.cluster_size(n, K.dtype) if route == "cluster" else None
+        before = (dict(chol_inv.launches_by_route), dict(chol_inv.launches_by_cluster))
         L, Linv = chol_inv.cholesky_with_inverse(K)
-        grown = {k: chol_inv.launches_by_route[k] - before[k] for k in before}
-        if grown != {k: int(k == route) for k in before}:
-            raise AssertionError(f"K1 n={K.shape[-1]} {K.dtype}: route {route}, launches {grown}")
-        return route, L, Linv
+        grown = ({k: chol_inv.launches_by_route[k] - before[0][k] for k in before[0]},
+                 {k: chol_inv.launches_by_cluster[k] - before[1][k] for k in before[1]})
+        if grown != ({k: int(k == route) for k in before[0]},
+                     {k: int(k == cluster) for k in before[1]}):
+            raise AssertionError(f"K1 n={n} {K.dtype}: route {route} cluster {cluster}, "
+                                 f"launches {grown}")
+        return (route if cluster is None else f"cluster c={cluster}"), L, Linv
 
     kernels = []
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).removeprefix("torch.")
-        worst = 0.0
+        worst = {"resident": 0.0, "cluster": 0.0}
         for B, n in K1_SHAPES:
             K = _spd_batch(torch, B, n, dtype, seed=n)
             route, L, Linv = k1_routed(K)
-            worst = max(worst, k1_check(name, K, L, Linv, route))
+            err = k1_check(name, K, L, Linv, route)
+            worst[route.split()[0]] = max(worst[route.split()[0]], err)
+        # every n of the cluster route
+        cluster_ns = range(chol_inv.RESIDENT_MAX_N[name] + 1, chol_inv.MAX_KERNEL_N + 1)
+        sweep = {}
+        for n in cluster_ns:
+            K = _spd_batch(torch, 3, n, dtype, seed=n)
+            route, L, Linv = k1_routed(K)
+            sweep[route] = sweep.get(route, 0) + 1
+            worst["cluster"] = max(worst["cluster"], k1_check(name, K, L, Linv, ""))
+        print(f"[K1 {name}] every n of the cluster route, {cluster_ns.start}-{cluster_ns.stop - 1} "
+              f"(B=3): shapes by route {sweep}, all within {K1_TOL[name]:.0e} of the plain "
+              f"version; worst error on the cluster route {worst['cluster']:.3e}")
         # one indefinite problem gives non-finite output for itself only, on
-        # each route
-        for n in (40, 250):
+        # the resident route and on each cluster size
+        for n in (40, 200, 250):
             K = _spd_batch(torch, 4, n, dtype, seed=1)
             K[2, 7, 7] = -1e3
             route, L, Linv = k1_routed(K)
@@ -1495,38 +1683,49 @@ def main() -> int:
                 raise AssertionError(f"K1 {name} {route}: indefinite input gave finite "
                                      f"flags {fin.tolist()}")
 
-        # the main path's shape: the resident kernel, the streamed one
-        # through its private launcher, the plain version and the library
-        K = _spd_batch(torch, MAIN_B, MAIN_N, dtype, seed=7)
-        if chol_inv.kernel_route(MAIN_N, dtype) != "resident":
-            raise AssertionError(f"K1 {name} n={MAIN_N} is not routed to the resident kernel")
-        L, Linv = chol_inv._launch(K, "streamed")
-        worst_streamed = k1_check(name, K, L, Linv, "streamed")
-        ms = _time_ms(torch, lambda: chol_inv.cholesky_with_inverse(K))
-        streamed_ms = _time_ms(torch, lambda: chol_inv._launch(K, "streamed"), count=5)
-        plain_ms = _time_ms(torch, lambda: chol_inv.chol_inv_reference(K), count=3, windows=1)
-        eye = torch.eye(MAIN_N, dtype=dtype, device="cuda").expand_as(K)
+        # each route at its fleet's shape: the kernel, the plain version and
+        # the library; on the cluster route also K3's kernel with every
+        # sign +1, held to K1's plain version first
+        for B, n, label in ((MAIN_B, MAIN_N, "resident"), (N256_B, N256_N, "cluster")):
+            K = _spd_batch(torch, B, n, dtype, seed=7)
+            if chol_inv.kernel_route(n, dtype) != label:
+                raise AssertionError(f"K1 {name} n={n} is not routed to the {label} kernel")
+            ms = _time_ms(torch, lambda: chol_inv.cholesky_with_inverse(K))
+            plain_ms = _time_ms(torch, lambda: chol_inv.chol_inv_reference(K), count=3,
+                                windows=1)
+            eye = torch.eye(n, dtype=dtype, device="cuda").expand_as(K)
 
-        def library():
-            Lc = torch.linalg.cholesky(K)
-            return torch.linalg.solve_triangular(Lc, eye, upper=False)
+            def library():
+                Lc = torch.linalg.cholesky(K)
+                return torch.linalg.solve_triangular(Lc, eye, upper=False)
 
-        library_ms = _time_ms(torch, library)
-        bound_ms, bound_by = _bound(name, _factor_elements(MAIN_B, MAIN_N) * K.element_size(),
-                                    2 * MAIN_B * MAIN_N ** 3 / 3)
-        print(f"[K1 {name}] B={MAIN_B} n={MAIN_N}: resident kernel {ms:.4f} ms, streamed "
-              f"kernel {streamed_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-              f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.1f} us ({bound_by}); "
-              f"streamed/resident {streamed_ms / ms:.2f}x, library/resident "
-              f"{library_ms / ms:.2f}x; {smi}")
-        kernels.append(dict(
-            name=f"chol_inv_{name}", route="cuda", kernel_route="resident",
-            source="piqp_tpu_torch/csrc/chol_inv_resident.cu",
-            replaces="piqp_tpu/ops/pallas_chol.py:65",
-            launches=None, max_abs_err=max(worst, worst_streamed), ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-            streamed_ms=streamed_ms,
-        ))
+            library_ms = _time_ms(torch, library)
+            bound_ms, bound_by = _bound(name, _factor_elements(B, n) * K.element_size(),
+                                        2 * B * n ** 3 / 3)
+            entry = dict(
+                name=f"chol_inv_{name}", route="cuda", kernel_route=label,
+                source="piqp_tpu_torch/csrc/chol_inv_resident.cu",
+                replaces="piqp_tpu/ops/pallas_chol.py:65",
+                launches=None, max_abs_err=worst[label], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            )
+            extra = ""
+            if label == "cluster":
+                ones = torch.ones(n, dtype=dtype, device="cuda")
+                k3 = lambda: signed_chol_inv.signed_cholesky_with_inverse(K, ones)
+                k1_check(name, K, *k3(),
+                         f"K3 kernel, signs +1, c={signed_chol_inv.cluster_size(n, dtype)},")
+                k3_ms = _time_ms(torch, k3)
+                entry.update(name=f"chol_inv_cluster_{name}",
+                             cluster=chol_inv.cluster_size(n, dtype),
+                             source="piqp_tpu_torch/csrc/signed_chol_inv_resident.cu",
+                             k3_plus_ms=k3_ms)
+                extra = f", K3 kernel with signs +1 {k3_ms:.4f} ms (cluster/K3 {ms / k3_ms:.2f}x)"
+            print(f"[K1 {name}] {label} B={B} n={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"library {library_ms:.4f} ms{extra}, bound {bound_ms * 1e3:.1f} us "
+                  f"({bound_by}); library/kernel {library_ms / ms:.2f}x, kernel/bound "
+                  f"{ms / bound_ms:.2f}x; {smi}")
+            kernels.append(entry)
 
     # ---- 2b. K2 and K3 against their plain versions on the card
     kernels += _check_k2(torch, smi)
@@ -1571,7 +1770,7 @@ def main() -> int:
     main_routes = dict(chol_inv.launches_by_route)
     print(f"[main] K1 launches in the cold + warm rounds: by dtype {main_launches}, "
           f"by route {main_routes}")
-    if main_routes != {"resident": sum(main_launches.values()), "streamed": 0}:
+    if main_routes != {"resident": sum(main_launches.values()), "cluster": 0}:
         raise AssertionError(f"main path K1 launches by route {main_routes}: all must be resident")
 
     cold_viol = _check_round(problems, cold, "cold")
@@ -1803,7 +2002,7 @@ def main() -> int:
     # and the host route
     t_new = time.perf_counter()
     k1 = _diff_dense_fleet(torch, smi)
-    if not (k1["resident"] > 0 and k1["streamed"] == 0):
+    if not (k1["resident"] > 0 and k1["cluster"] == 0):
         raise AssertionError(f"dense differentiable forward: K1 launches by route {k1}")
     k2b = _diff_stage_fleet(torch, smi, data7)
     if not (k2b["small"] > 0 and k2b["general"] == 0):
@@ -1832,6 +2031,8 @@ def main() -> int:
     t_new = time.perf_counter()
     capi = _capi_phase(torch, smi, problems[0], moved[0]["c"], prob0, prob0["c"] + dc[0])
     for entry in kernels:
+        if entry["kernel_route"] == "cluster":
+            continue  # phase 15 runs n = 128: K1's resident route
         for prefix, kernel, cases in (("chol_inv_apply_", "K2", ("multistage",)),
                                       ("signed_chol_inv_", "K3", ("ldlt",)),
                                       ("chol_inv_", "K1", ("chol", "mixed"))):
@@ -1840,6 +2041,17 @@ def main() -> int:
                 entry["capi_launches"] = sum(capi[c][f"{kernel}_dtype"][dtype] for c in cases)
                 break
     print(f"[phase 15] {time.perf_counter() - t_new:.1f} s")
+
+    # ---- 16. the n = 256 dense fleet on K1's cluster route
+    t_new = time.perf_counter()
+    n256 = _dense256_phase(torch, smi)
+    for entry in kernels:
+        if entry["kernel_route"] == "cluster":
+            dtype = entry["name"].removeprefix("chol_inv_cluster_")
+            entry["launches"] = n256["by_dtype"][dtype]
+            entry["n256_launches_by_route"] = n256["by_route"]
+            entry["n256_launches_by_cluster"] = n256["by_cluster"]
+    print(f"[phase 16] {time.perf_counter() - t_new:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(f"[device] {smi}")

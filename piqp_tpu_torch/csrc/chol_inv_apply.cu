@@ -30,13 +30,13 @@
 // then two triangular products), 37 MFLOP in all (0.6 us).  So it is
 // bound by bytes in both types.
 //
-// Design: one thread block per matrix, as K1, but sized by the problem:
+// Design: one thread block per matrix, sized by the problem:
 // the block has max(n, r) threads rounded up to a warp (at most 256), so an
 // n = 8 block runs one warp instead of leaving 224 of 256 threads idle.
 // While K, Linv and the right-hand block fit in the 227 KB of shared
 // memory (n = 8: 2.4 KB in f64; up to n = 64 with r = 2n + 4), they live
 // there and only the outputs go to device memory; larger blocks keep the
-// workspace in the output buffers as K1 does.  The products run one thread
+// workspace in the output buffers.  The products run one thread
 // per right-hand column, in place: rows in descending order for Z = Linv
 // RHS (row i needs the RHS rows <= i, not yet overwritten), then ascending
 // for Y = Linv^T Z (row i needs the Z rows >= i).  At the fleet's n = 8
@@ -82,7 +82,7 @@ chol_inv_apply_kernel(const T* __restrict__ K, const T* __restrict__ RHS,
   for (int idx = tid; idx < nr; idx += nthreads) Y[idx] = RHS[roffset + idx];
   __syncthreads();
 
-  piqp::chol_inv_recurrence<T>(W, Li, nullptr, n, col, row);
+  piqp::chol_inv_recurrence<T>(W, Li, n, col, row);
 
   // Z = Linv RHS, then Y = Linv^T Z, in place, one thread per column
   for (int k = tid; k < r; k += nthreads) {

@@ -4,10 +4,11 @@
 // Replaces the TPU kernel piqp_tpu/ops/pallas_chol.py::_chol_inv_kernel for
 // every n whose working set fits in one block's shared memory (float32
 // n <= 240, float64 n <= 169; ops/chol_inv.py routes by shape).  Larger n up
-// to 256 take the streamed kernel of chol_inv.cu.  For each SPD matrix K of
-// a (B, n, n) batch it writes L = chol(K), with its strict upper triangle
-// zero, and Linv = L^-1, lower.  One block per matrix; the grid is the
-// batch.
+// to 256 take the cluster route, the unsigned instance of
+// signed_chol_inv_resident.cu, which spreads this elimination's rows over a
+// thread-block cluster.  For each SPD matrix K of a (B, n, n) batch it
+// writes L = chol(K), with its strict upper triangle zero, and
+// Linv = L^-1, lower.  One block per matrix; the grid is the batch.
 //
 // Algorithm: right-looking Cholesky of K carried together with forward
 // elimination of L X = I, in one n x n work square M that starts as K's
@@ -70,8 +71,8 @@
 // on neighbouring addresses, zeros of the upper triangles included.
 //
 // Rounding: the pivots use rsqrt (rsqrtf is within 2 ulp in float32) and
-// the blocked updates sum in another order than the streamed kernel and
-// the plain version, so the last bits differ; chip_smoke.py holds the
+// the blocked updates sum in another order than the plain version, so
+// the last bits differ; chip_smoke.py holds the
 // result to the same tolerance as before (5e-5 in float32, 1e-11 in
 // float64, relative to max |L|).  float32 stays on FFMA in full precision.
 // A pivot <= 0 gives rsqrt of a non-positive number and non-finite output

@@ -1,11 +1,21 @@
 // Batched signed Cholesky with fused triangular inverse (K3), with the
-// matrix resident in the shared memory of a thread-block cluster.
+// matrix resident in the shared memory of a thread-block cluster, and its
+// unsigned instance, K1's cluster route.
 //
-// Replaces the TPU kernel piqp_tpu/ops/pallas_chol.py::_signed_chol_inv_kernel
+// The signed instance (kSigned = true, signed_chol_inv_resident_kernel)
+// replaces the TPU kernel piqp_tpu/ops/pallas_chol.py::_signed_chol_inv_kernel
 // for every n <= 256 (ops/signed_chol_inv.py routes by shape).  For each
 // quasi-definite matrix K of a (B, n, n) batch and one sign vector
 // S = diag(signs) shared by the batch, it writes L with K = L S L^T (lower,
 // strict upper triangle zero, diag(L) = sqrt|pivot|) and Linv = L^-1, lower.
+//
+// The unsigned instance (kSigned = false, every sign +1,
+// chol_inv_cluster_kernel) replaces piqp_tpu/ops/pallas_chol.py::_chol_inv_kernel
+// above the one-block limit of chol_inv_resident.cu, n 241-256 in float32 and 170-256 in float64
+// (ops/chol_inv.py's "cluster" route): L = chol(K) and Linv = L^-1 of each
+// SPD matrix.  It reads no sign vector, keeps none in shared memory and
+// multiplies by none, so its blocks are n elements smaller; otherwise the
+// two instances are one code path.
 //
 // Algorithm: chol_inv_resident.cu's (K1's) carried-identity elimination
 // with the sign woven in.  Column j forms the unsigned vector
@@ -19,19 +29,21 @@
 // s_j v[i] v[c] from every later row i over its whole lower part, c <= i,
 // column j counting as 0.  When the loop ends, M's lower triangle holds
 // Linv, its strict upper triangle the unsigned v's (S L^T), and the
-// n-vector diag holds d; the store pass applies the signs to L.
+// n-vector diag holds d; the store pass applies the signs to L.  With
+// every sign +1 this is chol_inv_resident.cu's elimination exactly.
 //
 // Layout: one n x (n | 1) square would take 264 KB in float32 and 528 KB
 // in float64 at n = 256, more than a block's 227 KB, so the rows are
 // spread over a cluster of c blocks: panels of kNb = 8 rows are dealt to
 // the blocks round-robin (panel q to block q mod c, which keeps the
 // shrinking trailing work balanced), and each block keeps its whole rows
-// (lower part and S L^T part), a strip of kNb rows when c > 1, diag and
-// the signs: resident_smem_bytes below.  c is the smallest cluster whose
-// blocks fit (cluster_size): at n = 256, 2 blocks of 139 KB in float32 and
-// 3 of 197 KB in float64, so one block per SM.  The grid is B * c, one
-// cluster per matrix, launched with cudaLaunchKernelEx and a
-// cluster-dimension attribute.  Blocks have 512 threads in float32 and 256
+// (lower part and S L^T part), a strip of kNb rows when c > 1, diag and,
+// in K3, the signs: resident_smem_bytes below.  c is the smallest cluster
+// whose blocks fit (cluster_size): at n = 256, 2 blocks of 139 KB in
+// float32 and 3 of 197 KB in float64, so one block per SM; the unsigned
+// instance takes 2 blocks in float64 up to n = 225, K3 up to 224.  The
+// grid is B * c, one cluster per matrix, launched with cudaLaunchKernelEx
+// and a cluster-dimension attribute.  Blocks have 512 threads in float32 and 256
 // in float64 (kThreads): 512 left float64 at the 128-register cap with
 // spills and was 14% slower, 256 made float32 6% slower, and 4-block
 // clusters were twice as slow (PERF.md).
@@ -79,15 +91,16 @@
 // the last bits; chip_smoke.py holds L and Linv to 5e-5 (float32) and
 // 1e-11 (float64) relative to their largest entries.  float32 stays on
 // FFMA in full precision.  A pivot whose sign disagrees with its entry of
-// S gives rsqrt of a negative number and non-finite output for that
-// problem's cluster only; nothing clamps it.
+// S (in K1, a pivot <= 0) gives rsqrt of a negative number or of 0 and
+// non-finite output for that problem's cluster only; nothing clamps it.
 //
 // Bound on an H100 SXM (data sheet: 3.35 TB/s HBM3; 67 TFLOP/s in f32
 // outside the tensor cores and 67 TFLOP/s in f64 on them): at the
-// dense_ldlt fleet's B = 256, n = 256 the kernel must read K's lower
-// triangle and the signs once and write L and Linv once, n(n+1)/2 + 2n^2
-// elements per matrix: 168 MB in float32 (50 us) or 336 MB in float64
-// (100 us), against about 2n^3/3 flops per matrix (43 us): bound by bytes.
+// dense_ldlt fleet's B = 256, n = 256 (and the n = 256 dense fleet's, for
+// K1) the kernel must read K's lower triangle (and K3 the signs) once and
+// write L and Linv once, n(n+1)/2 + 2n^2 elements per matrix: 168 MB in
+// float32 (50 us) or 336 MB in float64 (100 us), against about 2n^3/3
+// flops per matrix (43 us): bound by bytes.
 // What sets its pace instead is each cluster's chain of 32 panels, two
 // cluster barriers each, with one block per SM (PERF.md).
 
@@ -128,17 +141,28 @@ constexpr int kSmemPerBlock = 232448;  // dynamic shared memory a block may opt 
 
 // Shared memory of one block of a c-block cluster: its rows (the panels
 // dealt to it, ceil(ceil(n / 8) / c) of them), a strip of 8 rows when c > 1,
-// diag and the signs.
-constexpr int resident_smem_bytes(int n, int elem, int c) {
-  return ((((n + 7) / 8 + c - 1) / c + (c > 1)) * 8 * (n | 1) + 2 * n) * elem;
+// diag and, when sgn (K3), the signs.
+constexpr int resident_smem_bytes(int n, int elem, int c, bool sgn) {
+  return ((((n + 7) / 8 + c - 1) / c + (c > 1)) * 8 * (n | 1) + (1 + sgn) * n) * elem;
 }
 
-// the smallest cluster whose blocks hold the matrix: 1 up to n = 239 in
-// float32 and n = 168 in float64, then 2, and 3 in float64 from n = 225
-constexpr int cluster_size(int n, int elem) {
+// the smallest cluster whose blocks hold the matrix: for K3 1 up to n = 239
+// in float32 and n = 168 in float64, then 2, and 3 in float64 from n = 225;
+// unsigned, 3 in float64 from n = 226
+constexpr int cluster_size(int n, int elem, bool sgn) {
   int c = 1;
-  while (c < kMaxCluster && resident_smem_bytes(n, elem, c) > kSmemPerBlock) ++c;
+  while (c < kMaxCluster && resident_smem_bytes(n, elem, c, sgn) > kSmemPerBlock) ++c;
   return c;
+}
+
+// s_x, the sign of row x: its entry of the sign vector in K3, +1 in K1
+template <bool kSigned, typename T>
+__device__ __forceinline__ T sign_of(const T* sgn, int x) {
+  if constexpr (kSigned) {
+    return sgn[x];
+  } else {
+    return T(1);
+  }
 }
 
 __device__ __forceinline__ float rsqrt_of(float x) { return rsqrtf(x); }
@@ -198,7 +222,7 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ A, T* M, int n, 
 // Write the block's rows of Linv (M's lower triangle, zeros above) and the
 // 8-column runs of L under its panels: L[i, col] = s_col M[col, i] for
 // col < i, diag[col] on the diagonal, zeros above, one run per row i.
-template <typename T>
+template <typename T, bool kSigned>
 __device__ __forceinline__ void store_factors(const T* M, const T* diag, const T* sgn,
                                               T* __restrict__ L, T* __restrict__ Li, int n,
                                               int P, int rows, int b, int c) {
@@ -224,7 +248,7 @@ __device__ __forceinline__ void store_factors(const T* M, const T* diag, const T
 #pragma unroll
       for (int k = 0; k < kNb; ++k) {
         const int col = col0 + k;
-        out[k] = col < i ? sgn[col] * M[(lq * kNb + k) * P + i]
+        out[k] = col < i ? sign_of<kSigned>(sgn, col) * M[(lq * kNb + k) * P + i]
                          : (col == i ? diag[col] : T(0));
       }
       T* dst = L + static_cast<size_t>(i) * n + col0;
@@ -250,7 +274,7 @@ __device__ __forceinline__ void store_factors(const T* M, const T* diag, const T
 // the same values.  S_pp L_pp^T goes into M's upper block as it is formed,
 // d into diag, Linv_pp into M's lower block.  Rows past nbp are padded
 // with the identity and sign +1.
-template <typename T>
+template <typename T, bool kSigned>
 __device__ __forceinline__ void factor_diagonal_block(T* M, T* diag, const T* sgn, int P,
                                                       int lr0, int j0, int nbp) {
   const int lane = threadIdx.x & 31;
@@ -264,7 +288,7 @@ __device__ __forceinline__ void factor_diagonal_block(T* M, T* diag, const T* sg
   }
 #pragma unroll
   for (int k = 0; k < kNb; ++k) {
-    const T sk = k < nbp ? sgn[j0 + k] : T(1);
+    const T sk = k < nbp ? sign_of<kSigned>(sgn, j0 + k) : T(1);
     const T dinv = rsqrt_of(sk * a[k][k]);
     if (lane == k && k < nbp) diag[j0 + k] = sk * a[k][k] * dinv;
 #pragma unroll
@@ -298,7 +322,7 @@ __device__ __forceinline__ void factor_diagonal_block(T* M, T* diag, const T* sg
 // the nbp strip rows S (rows past nbp masked out).  Panel columns
 // j0 <= c < j1 start from 0 and take only the rows r with j0 + r >= c,
 // whose V[r, c] is Linv_pp[r, c - j0].
-template <typename T, int KC>
+template <typename T, bool kSigned, int KC>
 __device__ __forceinline__ void update_rows(T* M, const T* S, const T* sgn, int P, int n,
                                             int lr, int g, int j0, int nbp) {
   const int lane = threadIdx.x & 31;
@@ -318,7 +342,7 @@ __device__ __forceinline__ void update_rows(T* M, const T* S, const T* sgn, int 
 #pragma unroll
     for (int r = r0; r < r0 + kRStep; ++r) {
       const T* srow = S + r * P;
-      const T sr = r < nbp ? sgn[j0 + r] : T(0);
+      const T sr = r < nbp ? sign_of<kSigned>(sgn, j0 + r) : T(0);
       T u[kRows], s[KC];
 #pragma unroll
       for (int q = 0; q < kRows; ++q) u[q] = (r < nbp && g + q < n) ? sr * srow[g + q] : T(0);
@@ -347,24 +371,26 @@ __device__ __forceinline__ void update_rows(T* M, const T* S, const T* sgn, int 
 
 // update_rows over the chunks that reach the tile's last row: kc of them,
 // a run-time value uniform across the warp, mapped to a compile-time KC
-template <typename T, int KC, int kChunks>
+template <typename T, bool kSigned, int KC, int kChunks>
 __device__ __forceinline__ void update_rows_upto(T* M, const T* S, const T* sgn, int P, int n,
                                                  int lr, int g, int j0, int nbp, int kc) {
   if constexpr (KC < kChunks) {
     if (kc == KC) {
-      update_rows<T, KC>(M, S, sgn, P, n, lr, g, j0, nbp);
+      update_rows<T, kSigned, KC>(M, S, sgn, P, n, lr, g, j0, nbp);
     } else {
-      update_rows_upto<T, KC + 1, kChunks>(M, S, sgn, P, n, lr, g, j0, nbp, kc);
+      update_rows_upto<T, kSigned, KC + 1, kChunks>(M, S, sgn, P, n, lr, g, j0, nbp, kc);
     }
   } else {
-    update_rows<T, kChunks>(M, S, sgn, P, n, lr, g, j0, nbp);
+    update_rows<T, kSigned, kChunks>(M, S, sgn, P, n, lr, g, j0, nbp);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads<T>, 1)
-signed_chol_inv_resident_kernel(const T* __restrict__ K, const T* __restrict__ signs,
-                                T* __restrict__ L_out, T* __restrict__ Linv_out, int n) {
+// the body of both instances; signs is read only when kSigned
+template <typename T, bool kSigned>
+__device__ __forceinline__ void factor_resident(const T* __restrict__ K,
+                                                const T* __restrict__ signs,
+                                                T* __restrict__ L_out, T* __restrict__ Linv_out,
+                                                int n) {
   constexpr int kWarps = kThreads<T> / 32;
   static_assert(kNb % kRows == 0 && kNb <= 32, "warp 0 takes the next panel's rows whole");
   static_assert(kNb % (16 / sizeof(T)) == 0, "L's runs are whole 16-byte vectors");
@@ -378,15 +404,19 @@ signed_chol_inv_resident_kernel(const T* __restrict__ K, const T* __restrict__ s
   T* M = reinterpret_cast<T*>(smem_raw);
   T* strip = M + rows * P;
   T* diag = strip + (c > 1 ? kNb * P : 0);
-  T* sgn = diag + n;
+  T* sgn = kSigned ? diag + n : nullptr;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const size_t offset = static_cast<size_t>(blockIdx.x / c) * n * n;
 
-  for (int x = tid; x < n; x += kThreads<T>) sgn[x] = signs[x];
+  if constexpr (kSigned) {
+    for (int x = tid; x < n; x += kThreads<T>) sgn[x] = signs[x];
+  }
   load_rows<T>(K + offset, M, n, P, rows, b, c);
   __syncthreads();
-  if (b == 0 && warp == 0) factor_diagonal_block<T>(M, diag, sgn, P, 0, 0, min(kNb, n));
+  if (b == 0 && warp == 0) {
+    factor_diagonal_block<T, kSigned>(M, diag, sgn, P, 0, 0, min(kNb, n));
+  }
   cluster.sync();
 
   const int panels = (n + kNb - 1) / kNb;
@@ -463,14 +493,14 @@ signed_chol_inv_resident_kernel(const T* __restrict__ K, const T* __restrict__ s
       const int lr = first + t * kRows;
       const int g = global_row(lr, b, c);
       if (g < n) {
-        update_rows_upto<T, 1, kChunks>(M, S, sgn, P, n, lr, g, j0, nbp,
+        update_rows_upto<T, kSigned, 1, kChunks>(M, S, sgn, P, n, lr, g, j0, nbp,
                                         (min(g + kRows, n) - 1) / 32 + 1);
       }
     };
     if (lookahead && warp == 0) {
       for (int t = 0; t < kNb / kRows; ++t) update_tile(t);
       __syncwarp();
-      factor_diagonal_block<T>(M, diag, sgn, P, first, j1, min(kNb, n - j1));
+      factor_diagonal_block<T, kSigned>(M, diag, sgn, P, first, j1, min(kNb, n - j1));
     } else {
       const int t0 = lookahead ? kNb / kRows + warp - 1 : warp;
       const int step = lookahead ? kWarps - 1 : kWarps;
@@ -478,17 +508,32 @@ signed_chol_inv_resident_kernel(const T* __restrict__ K, const T* __restrict__ s
     }
     cluster.sync();
   }
-  store_factors<T>(M, diag, sgn, L_out + offset, Linv_out + offset, n, P, rows, b, c);
+  store_factors<T, kSigned>(M, diag, sgn, L_out + offset, Linv_out + offset, n, P, rows, b, c);
+}
+
+// K3 and K1 launch under names of their own, so a profile tells them apart
+template <typename T>
+__global__ void __launch_bounds__(kThreads<T>, 1)
+signed_chol_inv_resident_kernel(const T* __restrict__ K, const T* __restrict__ signs,
+                                T* __restrict__ L_out, T* __restrict__ Linv_out, int n) {
+  factor_resident<T, true>(K, signs, L_out, Linv_out, n);
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kThreads<T>, 1)
+chol_inv_cluster_kernel(const T* __restrict__ K, const T* __restrict__ signs,
+                        T* __restrict__ L_out, T* __restrict__ Linv_out, int n) {
+  factor_resident<T, false>(K, nullptr, L_out, Linv_out, n);
+}
+
+template <typename T, bool kSigned>
 int launch(const T* K, const T* signs, T* L, T* Linv, int B, int n, int c, void* stream) {
-  if (B < 0 || n < 1 || n > kMaxN || c != cluster_size(n, sizeof(T))) {
+  if (B < 0 || n < 1 || n > kMaxN || c != cluster_size(n, sizeof(T), kSigned)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return 0;
-  const int smem = resident_smem_bytes(n, sizeof(T), c);
-  auto kernel = signed_chol_inv_resident_kernel<T>;
+  const int smem = resident_smem_bytes(n, sizeof(T), c, kSigned);
+  auto kernel = kSigned ? signed_chol_inv_resident_kernel<T> : chol_inv_cluster_kernel<T>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -514,18 +559,30 @@ int launch(const T* K, const T* signs, T* L, T* Linv, int B, int n, int c, void*
 // Plain C interface (bound with ctypes).  K, L and Linv are contiguous
 // (B, n, n) device buffers, signs a contiguous (n,) device buffer of the
 // same type; `cluster` is the number of blocks per matrix, which must be
-// cluster_size(n, ...) above (mirrored in ops/signed_chol_inv.py).  The
-// launch goes on `stream` and does not synchronise.  Returns the
-// cudaError_t of the attribute call or of the launch, 0 on success, and
-// cudaErrorInvalidValue for an n above 256 or another cluster size.
+// cluster_size(n, ..., sgn) above (mirrored in ops/signed_chol_inv.py for
+// K3 and ops/chol_inv.py for K1).  The launch goes on `stream` and does not
+// synchronise.  Returns the cudaError_t of the attribute call or of the
+// launch, 0 on success, and cudaErrorInvalidValue for an n above 256 or
+// another cluster size.
 extern "C" int piqp_signed_chol_inv_resident_f32(const float* K, const float* signs, float* L,
                                                  float* Linv, int B, int n, int cluster,
                                                  void* stream) {
-  return launch<float>(K, signs, L, Linv, B, n, cluster, stream);
+  return launch<float, true>(K, signs, L, Linv, B, n, cluster, stream);
 }
 
 extern "C" int piqp_signed_chol_inv_resident_f64(const double* K, const double* signs,
                                                  double* L, double* Linv, int B, int n,
                                                  int cluster, void* stream) {
-  return launch<double>(K, signs, L, Linv, B, n, cluster, stream);
+  return launch<double, true>(K, signs, L, Linv, B, n, cluster, stream);
+}
+
+// K1's cluster route: the unsigned instance, no sign vector
+extern "C" int piqp_chol_inv_cluster_f32(const float* K, float* L, float* Linv, int B, int n,
+                                         int cluster, void* stream) {
+  return launch<float, false>(K, nullptr, L, Linv, B, n, cluster, stream);
+}
+
+extern "C" int piqp_chol_inv_cluster_f64(const double* K, double* L, double* Linv, int B,
+                                         int n, int cluster, void* stream) {
+  return launch<double, false>(K, nullptr, L, Linv, B, n, cluster, stream);
 }

@@ -36,8 +36,8 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {
     "piqp_chol_inv_resident_f32": (_PTR, _PTR, _PTR, _INT, _INT, _PTR),
     "piqp_chol_inv_resident_f64": (_PTR, _PTR, _PTR, _INT, _INT, _PTR),
-    "piqp_chol_inv_streamed_f32": (_PTR, _PTR, _PTR, _INT, _INT, _PTR),
-    "piqp_chol_inv_streamed_f64": (_PTR, _PTR, _PTR, _INT, _INT, _PTR),
+    "piqp_chol_inv_cluster_f32": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
+    "piqp_chol_inv_cluster_f64": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
     "piqp_chol_inv_apply_f32": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
     "piqp_chol_inv_apply_f64": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
     "piqp_chol_inv_apply_small_f32": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),

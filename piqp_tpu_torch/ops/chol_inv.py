@@ -12,8 +12,12 @@ Linv (``inv_solve``).
   - ``"resident"``, ``csrc/chol_inv_resident.cu``: the matrix stays in one
     block's shared memory, for n <= ``RESIDENT_MAX_N[dtype]`` (240 in
     float32, 169 in float64);
-  - ``"streamed"``, ``csrc/chol_inv.cu``: the workspace in device memory,
-    above that up to n = ``MAX_KERNEL_N`` (256);
+  - ``"cluster"``, the unsigned instance of
+    ``csrc/signed_chol_inv_resident.cu`` (K3's kernel with every sign +1):
+    the matrix stays in the shared memory of a thread-block cluster of
+    ``cluster_size(n, dtype)`` blocks, above that up to n =
+    ``MAX_KERNEL_N`` (256): 2 blocks in float32, 2 in float64 up to
+    n = 225 and 3 above;
   - ``"library"`` above n = 256, as the JAX package does outside its
     kernel (``_chol_inv_xla``).
   A launch that fails raises; no route stands in for another.
@@ -68,6 +72,31 @@ RESIDENT_MAX_N = {
     for dt in _DTYPES
 }
 
+# The cluster kernel (K1's cluster route and K3): rows of a panel, the unit
+# of rows dealt to a cluster's blocks; the largest cluster it takes (float64
+# from n = 226 here, 225 in K3); 4-block clusters were twice as slow as 3
+# at n = 256 (PERF.md)
+PANEL_ROWS = 8
+MAX_CLUSTER = 3
+
+
+def cluster_resident_smem_bytes(n: int, itemsize: int, cluster: int) -> int:
+    """Shared memory of one block of the cluster kernel's unsigned
+    instance with ``cluster`` blocks per matrix: its rows of the n x (n | 1)
+    work square (panels of 8 rows dealt round-robin), an 8-row strip when
+    the cluster has more than one block, and L's diagonal."""
+    panels = ((n + PANEL_ROWS - 1) // PANEL_ROWS + cluster - 1) // cluster + (cluster > 1)
+    return (panels * PANEL_ROWS * (n | 1) + n) * itemsize
+
+
+def cluster_size(n: int, dtype: torch.dtype) -> int:
+    """Blocks per matrix of the cluster route: the smallest cluster whose
+    blocks each hold their share of the matrix."""
+    c = 1
+    while c < MAX_CLUSTER and cluster_resident_smem_bytes(n, dtype.itemsize, c) > SMEM_PER_BLOCK:
+        c += 1
+    return c
+
 # K2's small kernel: lanes of a block, the largest n it takes
 SMALL_THREADS = 64
 SMALL_MAX_N = 32
@@ -106,21 +135,24 @@ def small_threads(n: int, r: int, itemsize: int) -> int:
 
 
 # Kernel launches made by ``cholesky_with_inverse`` (never by the plain
-# version or the library route), per dtype and per route;
+# version or the library route), per dtype, per route and, on the cluster
+# route, per cluster size (n > RESIDENT_MAX_N needs 2 or 3 blocks);
 # ``apply_launches_by_dtype`` and ``apply_launches_by_route`` the same for
 # ``cholesky_inverse_apply``.
 launches_by_dtype = {"float32": 0, "float64": 0}
-launches_by_route = {"resident": 0, "streamed": 0}
+launches_by_route = {"resident": 0, "cluster": 0}
+launches_by_cluster = {c: 0 for c in range(2, MAX_CLUSTER + 1)}
 apply_launches_by_dtype = {"float32": 0, "float64": 0}
 apply_launches_by_route = {"small": 0, "general": 0}
 
 
 def kernel_route(n: int, dtype: torch.dtype) -> str:
     """Where a CUDA batch of n x n matrices of ``dtype`` goes: "resident",
-    "streamed" or "library"."""
+    "cluster" (with ``cluster_size(n, dtype)`` blocks per matrix) or
+    "library"."""
     if n <= RESIDENT_MAX_N[str(dtype).removeprefix("torch.")]:
         return "resident"
-    return "streamed" if n <= MAX_KERNEL_N else "library"
+    return "cluster" if n <= MAX_KERNEL_N else "library"
 
 
 def _check(K: torch.Tensor) -> None:
@@ -164,8 +196,8 @@ def _chol_inv_library(K: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _launch(K: torch.Tensor, route: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel of ``route`` ("resident" or "streamed") on a CUDA
-    batch."""
+    """Launch the kernel of ``route`` ("resident", or "cluster" with
+    ``cluster_size(n, dtype)`` blocks per matrix) on a CUDA batch."""
     from ._build import library
 
     if not K.is_contiguous():
@@ -175,20 +207,23 @@ def _launch(K: torch.Tensor, route: str) -> tuple[torch.Tensor, torch.Tensor]:
     Linv = torch.empty_like(K)
     suffix = "f32" if K.dtype == torch.float32 else "f64"
     fn = getattr(library(), f"piqp_chol_inv_{route}_{suffix}")
+    cluster = (cluster_size(n, K.dtype),) if route == "cluster" else ()
     with torch.cuda.device(K.device):
         stream = torch.cuda.current_stream(K.device).cuda_stream
-        rc = fn(K.data_ptr(), L.data_ptr(), Linv.data_ptr(), B, n, stream)
+        rc = fn(K.data_ptr(), L.data_ptr(), Linv.data_ptr(), B, n, *cluster, stream)
     if rc != 0:
         raise RuntimeError(f"chol_inv {route} kernel launch failed with cudaError_t {rc}")
     launches_by_dtype[str(K.dtype).removeprefix("torch.")] += 1
     launches_by_route[route] += 1
+    if cluster:
+        launches_by_cluster[cluster[0]] += 1
     return L, Linv
 
 
 def cholesky_with_inverse(K: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(L, Linv) for a (B, n, n) batch of SPD matrices, float32 or float64.
 
-    CUDA tensor: the resident or the streamed kernel, or the library route,
+    CUDA tensor: the resident or the cluster kernel, or the library route,
     as ``kernel_route`` says.  CPU tensor: the plain version.  Any other
     device raises."""
     _check(K)

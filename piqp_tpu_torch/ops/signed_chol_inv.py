@@ -32,25 +32,19 @@ from __future__ import annotations
 import torch
 
 from . import ldlt
+# the cluster kernel's layout, shared with K1's cluster route
+from .chol_inv import (
+    MAX_CLUSTER, MAX_KERNEL_N, PANEL_ROWS, SMEM_PER_BLOCK, cluster_resident_smem_bytes,
+)
 
-MAX_KERNEL_N = 256
 _DTYPES = (torch.float32, torch.float64)
-# dynamic shared memory one H100 thread block may opt into (227 KB)
-SMEM_PER_BLOCK = 232_448
-# rows of a panel, the unit of rows dealt to a cluster's blocks
-PANEL_ROWS = 8
-# the largest cluster the route takes (float64 from n = 225); 4-block
-# clusters were twice as slow as 3 at n = 256 (PERF.md)
-MAX_CLUSTER = 3
 
 
 def resident_smem_bytes(n: int, itemsize: int, cluster: int) -> int:
     """Shared memory of one block of the resident kernel with ``cluster``
-    blocks per matrix: its rows of the n x (n | 1) work square (panels of 8
-    rows dealt round-robin), an 8-row strip when the cluster has more than
-    one block, L's diagonal and the signs."""
-    panels = ((n + PANEL_ROWS - 1) // PANEL_ROWS + cluster - 1) // cluster + (cluster > 1)
-    return (panels * PANEL_ROWS * (n | 1) + 2 * n) * itemsize
+    blocks per matrix: K1's cluster layout (``cluster_resident_smem_bytes``:
+    its rows of the work square, the strip, L's diagonal) and the signs."""
+    return cluster_resident_smem_bytes(n, itemsize, cluster) + n * itemsize
 
 
 def cluster_size(n: int, dtype: torch.dtype) -> int:

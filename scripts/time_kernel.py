@@ -3,7 +3,12 @@ card, each checkout in a fresh process, in the order given:
 
     python3 scripts/time_kernel.py K1|K2|K3 ROOT [ROOT ...]
 
-K1 is ``ops/chol_inv.cholesky_with_inverse`` at B = 1024, n = 128; K2 is
+K1 is ``ops/chol_inv.cholesky_with_inverse`` at B = 1024, n = 128 (the
+resident route) and at B = 256, n = 256 (above the resident limit: the
+cluster route; in older checkouts a one-block kernel with its workspace in
+device memory, ``csrc/chol_inv.cu``), each beside
+the library (``cholesky`` + ``solve_triangular``) and K3's wrapper of the
+same checkout with every sign +1 (held to K1's plain version); K2 is
 ``ops/chol_inv.cholesky_inverse_apply`` at the multistage fleet's first
 cyclic-reduction level, N = 12,800, n = 8, r = 20, and at N = 5,376,
 n = 23, r = 50 (256 problems of T = 43, D = 23, Da = 4); K3 is
@@ -37,18 +42,21 @@ REPO = Path(__file__).resolve().parents[1]
 
 # per kernel: its module in piqp_tpu_torch.ops, wrapper, plain version,
 # chip_smoke.py's input maker, the shapes timed (its arguments after the
-# dtype) and the kernel whose ptxas instances are read (the digit is the
-# mangled name's length)
+# dtype) and the kernels whose ptxas instances are read (the digit is the
+# mangled name's length; K1 above the resident limit is chol_inv_kernel in
+# older checkouts and chol_inv_cluster_kernel in newer ones)
 KERNELS = {
     "K1": dict(module="chol_inv", wrapper="cholesky_with_inverse",
-               reference="chol_inv_reference", batch="_spd_batch", shapes=[(1024, 128)],
-               instance=r"\dchol_inv_resident_kernel"),
+               reference="chol_inv_reference", batch="_spd_batch",
+               shapes=[(1024, 128), (256, 256)],
+               instance=r"\d(?:chol_inv_resident|chol_inv|chol_inv_cluster)_kernel"),
     "K2": dict(module="chol_inv", wrapper="cholesky_inverse_apply",
                reference="chol_inv_apply_reference", batch="_apply_batch",
                shapes=[(12800, 8, 20), (5376, 23, 50)], instance=r"\dchol_inv_apply_small_kernel"),
     "K3": dict(module="signed_chol_inv", wrapper="signed_cholesky_with_inverse",
                reference="signed_chol_inv_reference", batch="_quasidef_batch",
-               shapes=[(256, 256), (64, 256)], instance=r"\dsigned_chol_inv_resident_kernel"),
+               shapes=[(256, 256), (64, 256)],
+               instance=r"\dsigned_chol_inv_resident_kernel"),
 }
 # rotated input sets of K2's cold-L2 timing
 COLD_SETS = 8
@@ -63,6 +71,27 @@ def _instances(log: str, instance: str) -> list:
         r"(\d+) bytes spill stores.*?Used (\d+) registers", log, re.S):
         out.append(dict(function=m[1], registers=int(m[3]), spill_stores=int(m[2])))
     return out
+
+
+def _k1_comparators(torch, smoke, K, want, tol) -> dict:
+    """K1's route at K's shape, and the library's and K3's (signs +1) ms
+    there, K3's outputs held to K1's plain version ``want``."""
+    from piqp_tpu_torch.ops import chol_inv, signed_chol_inv
+
+    n = K.shape[-1]
+    ones = torch.ones(n, dtype=K.dtype, device=K.device)
+    eye = torch.eye(n, dtype=K.dtype, device=K.device).expand_as(K)
+    k3 = lambda: signed_chol_inv.signed_cholesky_with_inverse(K, ones)
+    got = k3()
+    torch.cuda.synchronize()
+    errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    if not all(e <= tol * max(1.0, w.abs().max().item()) for e, w in zip(errs, want)):
+        raise AssertionError(f"K3 with signs +1 at n={n}: errors {errs} of (L, Linv) against "
+                             f"K1's plain version")
+    return dict(route=chol_inv.kernel_route(n, K.dtype), k3_plus_ms=smoke._time_ms(torch, k3),
+                k3_plus_err=max(errs),
+                library_ms=smoke._time_ms(torch, lambda: torch.linalg.solve_triangular(
+                    torch.linalg.cholesky(K), eye, upper=False)))
 
 
 def _child(kernel: str, root: Path) -> dict:
@@ -120,6 +149,8 @@ def _child(kernel: str, root: Path) -> dict:
                 del sets
             else:
                 entry["ms"] = smoke._time_ms(torch, lambda: wrapper(*args))
+            if kernel == "K1":
+                entry.update(_k1_comparators(torch, smoke, args[0], want, tol))
             result[key] = entry
     return result
 

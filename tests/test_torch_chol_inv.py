@@ -14,13 +14,17 @@ import numpy as np
 import pytest
 import torch
 
+import piqp_tpu
+from piqp_tpu import batch as jbatch
 from piqp_tpu.ops.pallas_chol import (
     _pallas_chol_inv_apply_batched,
     _pallas_chol_inv_batched,
     _pallas_signed_chol_inv_batched,
     _signed_inv_xla,
 )
+from piqp_tpu.utils.random import dense_strongly_convex_qp
 
+import piqp_tpu_torch
 from piqp_tpu_torch.ops import chol_inv, ldlt, signed_chol_inv
 
 
@@ -81,12 +85,13 @@ def test_wrapper_rejects_bad_input(K):
 
 
 def test_no_launches_on_cpu():
-    before = (dict(chol_inv.launches_by_dtype), dict(chol_inv.launches_by_route))
+    counts = (chol_inv.launches_by_dtype, chol_inv.launches_by_route,
+              chol_inv.launches_by_cluster)
+    before = tuple(dict(c) for c in counts)
     for dt in (torch.float32, torch.float64):
-        for n in (6, 200):  # a resident and, in float64, a streamed shape
+        for n in (6, 200):  # a resident and, in float64, a cluster shape
             chol_inv.cholesky_with_inverse(torch.as_tensor(_spd_batch(2, n, 0), dtype=dt))
-    after = (chol_inv.launches_by_dtype, chol_inv.launches_by_route)
-    assert after == before
+    assert counts == before
 
 
 @pytest.mark.parametrize(
@@ -96,11 +101,11 @@ def test_no_launches_on_cpu():
         (128, torch.float32, "resident"),
         (128, torch.float64, "resident"),
         (169, torch.float64, "resident"),
-        (170, torch.float64, "streamed"),
+        (170, torch.float64, "cluster"),
         (240, torch.float32, "resident"),
-        (241, torch.float32, "streamed"),
-        (256, torch.float32, "streamed"),
-        (256, torch.float64, "streamed"),
+        (241, torch.float32, "cluster"),
+        (256, torch.float32, "cluster"),
+        (256, torch.float64, "cluster"),
         (257, torch.float32, "library"),
         (257, torch.float64, "library"),
     ],
@@ -138,6 +143,101 @@ def test_resident_layout_matches_the_kernel_source(dtype):
     for n in range(1, chol_inv.MAX_KERNEL_N + 2):
         assert eval(expr, {}, {"n": n, "elem": dtype.itemsize}) == \
             chol_inv.resident_smem_bytes(n, dtype.itemsize)
+
+
+@pytest.mark.parametrize(
+    "n,dtype,cluster",
+    [
+        (241, torch.float32, 2),
+        (256, torch.float32, 2),
+        (170, torch.float64, 2),
+        (225, torch.float64, 2),
+        (226, torch.float64, 3),
+        (256, torch.float64, 3),
+    ],
+)
+def test_cluster_size(n, dtype, cluster):
+    """Blocks per matrix on K1's cluster route, on both sides of each
+    limit: 2 from the resident limit, 3 in float64 from n = 226 (K3, which
+    also holds the signs, from n = 225)."""
+    assert chol_inv.kernel_route(n, dtype) == "cluster"
+    assert chol_inv.cluster_size(n, dtype) == cluster
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cluster_layout_matches_the_kernel_source(dtype):
+    """K1's cluster layout is the cluster kernel's unsigned one: the
+    shared-memory formula, per-block limit, panel rows and largest cluster
+    its launcher checks a launch against, with the signs' n elements left
+    out; the cluster size the route picks is the smallest whose blocks fit,
+    and every n of the route needs a cluster (2 or 3 blocks)."""
+    src = (Path(chol_inv.__file__).parents[1] / "csrc"
+           / "signed_chol_inv_resident.cu").read_text()
+    limit = int(re.search(r"constexpr int kSmemPerBlock = (\d+);", src).group(1))
+    max_cluster = int(re.search(r"constexpr int kMaxCluster = (\d+);", src).group(1))
+    panel = int(re.search(r"constexpr int kNb = (\d+);", src).group(1))
+    expr = re.search(
+        r"constexpr int resident_smem_bytes\(int n, int elem, int c, bool sgn\) \{\s*"
+        r"return ([^;]+);\s*\}", src
+    ).group(1).replace("/", "//")  # C's integer division
+    assert (limit, max_cluster, panel) == (
+        chol_inv.SMEM_PER_BLOCK, chol_inv.MAX_CLUSTER, chol_inv.PANEL_ROWS)
+    size = dtype.itemsize
+    for n in range(1, chol_inv.MAX_KERNEL_N + 1):
+        for c in range(1, max_cluster + 1):
+            assert eval(expr, {}, {"n": n, "elem": size, "c": c, "sgn": False}) == \
+                chol_inv.cluster_resident_smem_bytes(n, size, c)
+        c = chol_inv.cluster_size(n, dtype)
+        assert chol_inv.cluster_resident_smem_bytes(n, size, c) <= limit
+        assert c == 1 or chol_inv.cluster_resident_smem_bytes(n, size, c - 1) > limit
+        if chol_inv.kernel_route(n, dtype) == "cluster":
+            assert c in chol_inv.launches_by_cluster
+
+
+@pytest.mark.parametrize("n,dtype", [(176, "float64"), (248, "float32")])
+def test_reference_matches_jax_kernel_above_the_resident_limit(n, dtype):
+    """K1's plain version on the CPU, the one the cluster kernel is held to
+    on the card, against the JAX kernel in interpret mode at an n of the
+    cluster route (about a second each on the CPU)."""
+    K = _spd_batch(2, n, seed=n)
+    assert chol_inv.kernel_route(n, getattr(torch, dtype)) == "cluster"
+    Lj, Lij = (np.asarray(a) for a in _pallas_chol_inv_batched(jnp.asarray(K, dtype)))
+    Lt, Lit = (a.numpy() for a in chol_inv.cholesky_with_inverse(
+        torch.as_tensor(K, dtype=getattr(torch, dtype))))
+    tol = 5e-5 if dtype == "float32" else 1e-11
+    np.testing.assert_allclose(Lt, Lj, atol=tol, rtol=tol)
+    np.testing.assert_allclose(Lit, Lij, atol=50 * tol, rtol=50 * tol)
+    np.testing.assert_allclose(Lt @ Lit, np.broadcast_to(np.eye(n), K.shape), atol=50 * tol,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("n", [12, 64])
+def test_signed_reference_with_plus_signs_is_the_unsigned_one(n):
+    """K3's recurrence with every sign +1 is K1's: the identity that lets
+    one cluster kernel serve both (its unsigned instance is K1's cluster
+    route)."""
+    K = torch.as_tensor(_spd_batch(2, n, seed=5))
+    want = chol_inv.chol_inv_reference(K)
+    got = signed_chol_inv.signed_chol_inv_reference(K, torch.ones(n, dtype=K.dtype))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-12, rtol=1e-12)
+
+
+def test_float64_solve_above_the_resident_limit_matches_jax():
+    """Two float64 dense QPs at n = 172 (p = m = 86), an n of K1's cluster
+    route: the port on the CPU, which runs K1's plain version (the one the
+    cluster kernel is held to on the card), against the JAX package with
+    its kernel (interpret mode), equal status and iterations, x within 1e-9
+    (about 11 s on one CPU worker, mostly JAX's compile)."""
+    probs = [dense_strongly_convex_qp(172, 86, 86, seed=1000 + i) for i in range(2)]
+    assert chol_inv.kernel_route(172, torch.float64) == "cluster"
+    jres = jax.tree.map(np.asarray, jbatch.solve_batch(
+        jbatch.prepare_batch(probs), piqp_tpu.Settings(pallas_kernels=True)))
+    tres = piqp_tpu_torch.solve_batch(piqp_tpu_torch.prepare_batch(probs, device="cpu"),
+                                      piqp_tpu_torch.Settings())
+    assert tres.info.status.tolist() == jres.info.status.tolist() == [1, 1]
+    assert tres.info.iter.tolist() == jres.info.iter.tolist()
+    np.testing.assert_allclose(tres.x.numpy(), jres.x, atol=1e-9, rtol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -392,14 +492,15 @@ def test_signed_resident_layout_matches_the_kernel_source(dtype):
     max_cluster = int(re.search(r"constexpr int kMaxCluster = (\d+);", src).group(1))
     panel = int(re.search(r"constexpr int kNb = (\d+);", src).group(1))
     expr = re.search(
-        r"constexpr int resident_smem_bytes\(int n, int elem, int c\) \{\s*return ([^;]+);\s*\}", src
+        r"constexpr int resident_smem_bytes\(int n, int elem, int c, bool sgn\) \{\s*"
+        r"return ([^;]+);\s*\}", src
     ).group(1).replace("/", "//")  # C's integer division
     assert (limit, max_cluster, panel) == (
         signed_chol_inv.SMEM_PER_BLOCK, signed_chol_inv.MAX_CLUSTER, signed_chol_inv.PANEL_ROWS)
     size = dtype.itemsize
     for n in range(1, signed_chol_inv.MAX_KERNEL_N + 1):
         for c in range(1, max_cluster + 1):
-            assert eval(expr, {}, {"n": n, "elem": size, "c": c}) == \
+            assert eval(expr, {}, {"n": n, "elem": size, "c": c, "sgn": True}) == \
                 signed_chol_inv.resident_smem_bytes(n, size, c)
         c = signed_chol_inv.cluster_size(n, dtype)
         assert signed_chol_inv.resident_smem_bytes(n, size, c) <= limit
