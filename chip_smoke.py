@@ -5,10 +5,10 @@
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card, then drives the
 port's main path (a batched dense QP solve through the condensed-Cholesky
-backend) at full width and checks what comes out.  Every phase raises on
-failure, so any fault gives a nonzero exit code.  Without a CUDA device,
-or without the package beside it, the script exits nonzero and prints no
-result.
+backend) and each later slice's path at full width and checks what comes
+out.  Every phase raises on failure, so any fault gives a nonzero exit
+code.  Without a CUDA device, or without the package beside it, the script
+exits nonzero and prints no result.
 
 Phases:
   1. device and build: card name and power limit, versions, nvcc time;
@@ -26,18 +26,27 @@ Phases:
      B = 256, n = 256, and bounds;
   2b. K2 (Cholesky with inverse and apply) and K3 (signed Cholesky with
      inverse) against their plain versions, float32 and float64.  K2 at
-     D in {4, 8, 16, 33, 64, 128} (N = 5, R = 2D + 4), at
-     D in {1, 4, 7, 8, 9, 16, 23, 31, 32} with R = 3 and R = 2D + 4
-     (N = 101, a ragged last block), at the multistage fleet's shape
-     N = 12,800, D = 8, R = 20 and at N = 5,376, D = 23, R = 50, each launch
-     checked to take the route ``apply_kernel_route`` names (small up to
-     D = 32, general above); an indefinite block in the middle of a batch
-     and as the last group of a warp; at the two large shapes the small
-     kernel's device time (a CUDA graph of launches) with warm and cold L2,
-     its looped time, the general kernel's, and at the fleet's shape the
-     plain version's and the library's; the general kernel at its own
-     shapes, N = 2,560, D in {48, 64}, R = 2D + 4, against the library
-     route (both products included) and the bound.  K3 at
+     D in {4, 8, 16, 33, 64, 65, 97, 98, 128, 138, 139} (N = 5, R = 2D + 4:
+     each side of the resident route's limit, 138 / 139 in float32 and
+     97 / 98 in float64, and its first 256-thread block) and D = 33,
+     R = 300, at D in {1, 4, 7, 8, 9, 16, 23, 31, 32} with R = 3 and
+     R = 2D + 4 (N = 101, a ragged last block), at the multistage fleet's
+     shape N = 12,800, D = 8, R = 20, at N = 5,376, D = 23, R = 50, at the
+     horizon path's shapes and at every shape phase 17 launches (D = 48,
+     R = 100), each launch checked to take the route
+     ``apply_kernel_route`` names (small up to D = 32 where it fits,
+     resident where the n x (n + R) square fits one block, general above;
+     the horizon shapes small, phase 17's resident); an indefinite block
+     in the middle of a batch and as the last group of a warp, on the small
+     route, and in the middle of a batch on the resident route; at the two
+     large small-route shapes the small kernel's device time (a CUDA graph
+     of launches) with warm and cold L2, its looped time, the general
+     kernel's, and at the fleet's shape the plain version's and the
+     library's; at N = 2,560, D in {48, 64}, R = 2D + 4 the resident
+     kernel's device and looped times beside the general kernel's
+     (``_launch_apply(..., "general")``) and the library route's (both
+     products included; looped and by device time), the bound, and at
+     D = 48 the plain version's.  K3 at
      Np in {64, 128, 168, 169, 192, 224, 225, 239, 240, 256} (B = 5, mixed
      sign patterns; both sides of each dtype's cluster-size limits) and at
      the dense_ldlt fleet's shape B = 256, Np = 256, each launch checked to
@@ -120,7 +129,16 @@ Phases:
      again on the CPU (float64: equal iterations, |dx| <= 1e-9; mixed:
      equal status, |dx| <= 1e-4); one float64 DenseSolver at n = 200
      (p = m = 100; cluster route, 2 blocks), cold and warm; a profile of
-     the fleet's warm round.
+     the fleet's warm round;
+ 17. the D = 48 multistage fleet: 128 problems random_multistage_qp(T=41,
+     D=48, Da=4, ra=4, rg=4, seed=4000+i) (the chain-of-masses fixture's
+     horizon with a stage twice as wide; cyclic reduction, K2 at N = 2,560,
+     1,280, 640, 384, 128 and 128 with R = 100, the bound of each), mixed
+     cold and one warm round after c += 1e-3 N(0, 1), and a float64 cold
+     round of the first 32, every K2 launch on the resident route, by
+     dtype and route; host KKT checks of every problem; problems 0-1 again
+     on the CPU (float64: equal iterations, |dx| <= 1e-9; mixed: equal
+     status, |dx| <= 1e-4); a profile of the warm round with K2's share.
 The line before the last lists the kernels as JSON; the last line is the
 device summary.
 """
@@ -178,13 +196,26 @@ CFG4_SEED = 4
 K2_HORIZON = sorted({(b * 4 * h, MS_D, 4 * MS_D + MS_DA)
                      for b in (1, MS_B) for h in (12, 6, 3, 1)}
                     | {(K2_RAGGED_N, MS_D, 4 * MS_D + MS_DA)})
-# the general kernel's own timed shapes (D > 32, where the small kernel
-# stops): 2,560 blocks, R = 2D + 4
-K2_GENERAL_TIMED = [(2560, D, 2 * D + 4) for D in (48, 64)]
-K2_SHAPES = ([(5, D, 2 * D + 4) for D in (4, 8, 16, 33, 64, 128)]
+# phase 17: the D = 48 multistage fleet, 128 problems at the chain-of-masses
+# SQP fixture's horizon (T = 41) with a stage twice as wide; cyclic
+# reduction takes levels of 20, 10, 5, 3, 1 and 1 odd blocks, so K2 runs
+# at N = 128 times those, n = 48, R = 2D + Da = 100 (the resident route),
+# and its float64 round of 32 at a quarter of each N
+MS48_B, MS48_T, MS48_D, MS48_DA, MS48_B64 = 128, 41, 48, 4, 32
+MS48_LEVELS = (20, 10, 5, 3, 1, 1)
+K2_MS48 = sorted({(b * h, MS48_D, 2 * MS48_D + MS48_DA)
+                  for b in (MS48_B, MS48_B64) for h in MS48_LEVELS})
+# K2's wide timed shapes (D > 32, where the small kernel stops): 2,560
+# blocks, R = 2D + 4; D = 48 is the phase-17 fleet's first level
+K2_WIDE_TIMED = [(2560, D, 2 * D + 4) for D in (48, 64)]
+# each side of the resident square's limit at R = 2D + 4 (138 / 139 in
+# float32, 97 / 98 in float64), n = 65 (the first 256-thread block), and a
+# right-hand block wider than one register tile
+K2_SHAPES = ([(5, D, 2 * D + 4) for D in (4, 8, 16, 33, 64, 65, 97, 98, 128, 138, 139)]
+             + [(5, 33, 300)]
              + [(K2_RAGGED_N, D, R) for D in (1, 4, 7, 8, 9, 16, 23, 31, 32)
                 for R in (3, 2 * D + 4)]
-             + [K2_FLEET, K2_D23] + K2_HORIZON + K2_GENERAL_TIMED)
+             + [K2_FLEET, K2_D23] + K2_HORIZON + sorted(set(K2_MS48 + K2_WIDE_TIMED)))
 # rotated input sets of the cold-L2 timing: more than the 50 MB L2 holds
 K2_COLD_SETS = 8
 K3_SHAPES = [(5, 64), (5, 128), (5, 168), (5, 169), (5, 192), (5, 224), (5, 225), (5, 239),
@@ -423,13 +454,16 @@ def _check_k2(torch, smi) -> list:
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).removeprefix("torch.")
         tol = K1_TOL[name]
-        worst = 0.0
+        worst_route = {}
         for N, D, R in K2_SHAPES:
             K, RHS = _apply_batch(torch, N, D, R, dtype, seed=D + R)
             route, (L, Linv, Y) = routed(K, RHS)
             if (N, D, R) in K2_HORIZON and route != "small":
                 raise AssertionError(f"K2 {name} N={N} D={D} R={R}: the horizon path's shape "
                                      f"takes the {route} route")
+            if (N, D, R) in K2_MS48 + K2_WIDE_TIMED and route != "resident":
+                raise AssertionError(f"K2 {name} N={N} D={D} R={R}: the D = 48 fleet's or a "
+                                     f"timed wide shape takes the {route} route")
             torch.cuda.synchronize()
             L_ref, Linv_ref, Y_ref = chol_inv.chol_inv_apply_reference(K, RHS)
             eye = torch.eye(D, dtype=dtype, device="cuda")
@@ -445,11 +479,11 @@ def _check_k2(torch, smi) -> list:
                                      f"plain version")
             if bool(torch.triu(L, 1).any()) or bool(torch.triu(Linv, 1).any()):
                 raise AssertionError(f"K2 {name} {route} D={D}: nonzero upper triangle")
-            worst = max(worst, err_L, err_Y)
+            worst_route[route] = max(worst_route.get(route, 0.0), err_L, err_Y)
         # one indefinite block gives non-finite output for itself only: in
         # the middle of a batch, and as the last group of a warp whose
         # neighbours share its warp and the next one
-        for N, D, R, bad in ((4, 12, 28, 2), (8, 8, 20, 3), (16, 3, 10, 7)):
+        for N, D, R, bad in ((4, 12, 28, 2), (8, 8, 20, 3), (16, 3, 10, 7), (5, 48, 100, 2)):
             K = _spd_batch(torch, N, D, dtype, seed=1)
             K[bad, D // 2, D // 2] = -1e3
             route, (L, Linv, Y) = routed(K, torch.ones((N, D, R), dtype=dtype, device="cuda"))
@@ -507,12 +541,13 @@ def _check_k2(torch, smi) -> list:
                 print(f"[K2 {name}] N={N} D={D} R={R}: plain {t['plain_ms']:.4f} ms, library "
                       f"{t['library_ms']:.4f} ms; {smi}")
             timed[D] = t
-        # the general kernel at its own shapes against the library route
-        general = {}
-        for N, D, R in K2_GENERAL_TIMED:
+        # the resident kernel at the wide shapes against the general kernel
+        # (chol_inv_apply.cu) and the library route (both products included)
+        wide = {}
+        for N, D, R in K2_WIDE_TIMED:
             K, RHS = _apply_batch(torch, N, D, R, dtype, seed=7)
-            if chol_inv.apply_kernel_route(D, dtype, R) != "general":
-                raise AssertionError(f"K2 {name} D={D} R={R} is not routed to the general kernel")
+            if chol_inv.apply_kernel_route(D, dtype, R) != "resident":
+                raise AssertionError(f"K2 {name} D={D} R={R} is not routed to the resident kernel")
             eye = torch.eye(D, dtype=dtype, device="cuda").expand_as(K)
 
             def library():
@@ -521,27 +556,52 @@ def _check_k2(torch, smi) -> list:
                 return Li.mT @ (Li @ RHS)
 
             kernel = lambda: chol_inv.cholesky_inverse_apply(K, RHS)
+            general = lambda: chol_inv._launch_apply(K, RHS, "general")
             g = dict(ms=_graph_ms(torch, [kernel]), looped_ms=_time_ms(torch, kernel),
-                     library_ms=_time_ms(torch, library))
+                     general_ms=_graph_ms(torch, [general]),
+                     general_looped_ms=_time_ms(torch, general),
+                     library_ms=_time_ms(torch, library),
+                     library_graph_ms=_graph_ms(torch, [library]))
             g["bound_ms"], g["bound_by"] = _bound(
                 name, (_factor_elements(N, D) + 2 * N * D * R) * K.element_size(),
                 N * (2 * D ** 3 / 3 + 2 * D * D * R))
-            print(f"[K2 {name}] general N={N} D={D} R={R}: kernel device {g['ms']:.4f} ms, "
-                  f"looped {g['looped_ms']:.4f} ms; library route looped {g['library_ms']:.4f} ms "
-                  f"(library/kernel looped {g['library_ms'] / g['looped_ms']:.2f}x); bound "
+            if D == MS48_D:
+                g["plain_ms"] = _time_ms(torch, lambda: chol_inv.chol_inv_apply_reference(K, RHS),
+                                         count=3, windows=1)
+            print(f"[K2 {name}] resident N={N} D={D} R={R}: kernel device {g['ms']:.4f} ms, "
+                  f"looped {g['looped_ms']:.4f} ms; general kernel device "
+                  f"{g['general_ms']:.4f} ms, looped {g['general_looped_ms']:.4f} ms; library "
+                  f"route looped {g['library_ms']:.4f} ms, device {g['library_graph_ms']:.4f} ms; "
+                  f"library/kernel looped {g['library_ms'] / g['looped_ms']:.2f}x, "
+                  f"general/kernel looped {g['general_looped_ms'] / g['looped_ms']:.2f}x; bound "
                   f"{g['bound_ms'] * 1e3:.2f} us ({g['bound_by']}), device/bound "
                   f"{g['ms'] / g['bound_ms']:.2f}x; {smi}")
-            general[D] = g
+            if "plain_ms" in g:
+                print(f"[K2 {name}] resident N={N} D={D} R={R}: plain {g['plain_ms']:.4f} ms; "
+                      f"{smi}")
+            wide[D] = g
         fleet = timed[K2_FLEET[1]]
         entries.append(dict(
             name=f"chol_inv_apply_{name}", route="cuda", kernel_route="small",
             source="piqp_tpu_torch/csrc/chol_inv_apply_small.cu",
             replaces="piqp_tpu/ops/pallas_chol.py:270",
-            launches=None, max_abs_err=worst, ms=fleet["ms"], ms_cold_l2=fleet["ms_cold_l2"],
-            looped_ms=fleet["looped_ms"], general_ms=fleet["general_ms"],
-            library_ms=fleet["library_ms"], plain_ms=fleet["plain_ms"],
-            bound_ms=fleet["bound_ms"], bound_by=fleet["bound_by"],
-            d23=timed[K2_D23[1]], general_timed=general,
+            launches=None, max_abs_err=worst_route["small"], ms=fleet["ms"],
+            ms_cold_l2=fleet["ms_cold_l2"], looped_ms=fleet["looped_ms"],
+            general_ms=fleet["general_ms"], library_ms=fleet["library_ms"],
+            plain_ms=fleet["plain_ms"], bound_ms=fleet["bound_ms"], bound_by=fleet["bound_by"],
+            d23=timed[K2_D23[1]],
+        ))
+        w48 = wide[MS48_D]
+        entries.append(dict(
+            name=f"chol_inv_apply_resident_{name}", route="cuda", kernel_route="resident",
+            source="piqp_tpu_torch/csrc/chol_inv_apply_resident.cu",
+            replaces="piqp_tpu/ops/pallas_chol.py:270",
+            launches=None, max_abs_err=worst_route["resident"], ms=w48["ms"],
+            looped_ms=w48["looped_ms"], general_ms=w48["general_ms"],
+            general_looped_ms=w48["general_looped_ms"], library_ms=w48["library_ms"],
+            library_graph_ms=w48["library_graph_ms"], plain_ms=w48["plain_ms"],
+            bound_ms=w48["bound_ms"], bound_by=w48["bound_by"],
+            d64=wide[64],
         ))
     return entries
 
@@ -1124,7 +1184,8 @@ def _horizon_phase(torch, smi, fleet: dict, dense: dict) -> dict:
             print(f"[horizon] config 4: sharded factors and solves (card and CPU) {calls}, "
                   f"K2 launches by route at 4 chunks {k2_by_chunks[4]}, at 8 chunks "
                   f"{k2_by_chunks[8]}")
-            if not (k2_by_chunks[4]["small"] > 0 and k2_by_chunks[4]["general"] == 0
+            if not (k2_by_chunks[4]["small"] > 0
+                    and k2_by_chunks[4]["resident"] == k2_by_chunks[4]["general"] == 0
                     and calls["factor"] > 0 and calls["solve"] > 0):
                 raise AssertionError("config 4 at 4 chunks: the sharded factor did not launch "
                                      "the small K2 kernel")
@@ -1172,7 +1233,8 @@ def _horizon_phase(torch, smi, fleet: dict, dense: dict) -> dict:
             k2_by_dtype = dict(chol_inv.apply_launches_by_dtype)
             print(f"[horizon fleet] K2 launches by route {k2_fleet}; phase 14's K2 launches by "
                   f"dtype {k2_by_dtype}")
-            if not (grew and k2_fleet["small"] > 0 and k2_fleet["general"] == 0):
+            if not (grew and k2_fleet["small"] > 0
+                    and k2_fleet["resident"] == k2_fleet["general"] == 0):
                 raise AssertionError(f"sharded fleet: K2 launches {k2_fleet}, sharded calls "
                                      f"grew {grew}")
             multistage.cholesky_inverse_apply = kernel
@@ -1575,6 +1637,99 @@ def _dense256_phase(torch, smi) -> dict:
     return dict(zip(("by_dtype", "by_route", "by_cluster"), launches))
 
 
+def _wide_stage_phase(torch, smi) -> dict:
+    """Phase 17: the D = 48 multistage fleet, mixed cold and one warm round
+    (and a profile of the warm round) and a float64 cold round of 32, every
+    K2 launch on the resident route; problems 0-1 again on the CPU.
+    Returns the fleet's K2 launches (mixed rounds and float64 round) by
+    dtype and by route."""
+    import dataclasses
+
+    from piqp_tpu_torch import Settings, solve_batch, warm_from_result
+    from piqp_tpu_torch import multistage as ms
+    from piqp_tpu_torch.ops import chol_inv
+    from piqp_tpu_torch.types import index, to_device
+
+    B, T, D = MS48_B, MS48_T, MS48_D
+    dims = dict(T=T, D=D, Da=MS48_DA, ra=4, rg=4)
+    if not ms._use_cr(T):
+        raise AssertionError(f"T = {T} does not select cyclic reduction")
+    seeds = [4000 + i for i in range(B)]
+    t0 = time.perf_counter()
+    data = ms.random_multistage_batch(seeds, **dims, device="cuda")
+    rng = np.random.default_rng(2027)
+    dc = rng.standard_normal((B, data.n)) * 1e-3
+    data_w = dataclasses.replace(data, c=data.c + torch.as_tensor(dc, device="cuda"))
+    _sync(torch, "cuda")
+    kws = [ms.random_multistage_arrays(seed=s, **dims) for s in seeds]
+    problems = [_stage_problem(ms, kw) for kw in kws]
+    moved = [dict(p, c=kw["c"] + dc[i]) for i, (p, kw) in enumerate(zip(problems, kws))]
+    print(f"[ms48] prepared {B} problems T={T} D={D} Da={MS48_DA} (n={data.n} p={data.p} "
+          f"m={data.m}) in {time.perf_counter() - t0:.2f} s")
+    R = 2 * D + MS48_DA
+    for dt in (torch.float32, torch.float64):
+        if chol_inv.apply_kernel_route(D, dt, R) != "resident":
+            raise AssertionError(f"D = {D}, R = {R} is not routed to the resident K2 kernel")
+    for N, _, _ in K2_MS48:
+        bounds = [_bound(name, (_factor_elements(N, D) + 2 * N * D * R) * size,
+                         N * (2 * D ** 3 / 3 + 2 * D * D * R))
+                  for name, size in (("float32", 4), ("float64", 8))]
+        print(f"[ms48] K2 level shape N={N} D={D} R={R}: bound float32 "
+              f"{bounds[0][0] * 1e3:.2f} us, float64 {bounds[1][0] * 1e3:.2f} us "
+              f"({bounds[0][1]})")
+    mixed, f64 = Settings(mixed_precision=True), Settings()
+    solve_batch(index(data, slice(0, 2)), mixed)  # warm-up
+
+    def k2_counts():
+        return dict(chol_inv.apply_launches_by_dtype), dict(chol_inv.apply_launches_by_route)
+
+    def check_resident(label, counts, dtypes):
+        """Every K2 launch of a run on the resident route, > 0 per dtype."""
+        by_dtype, by_route = counts
+        print(f"[ms48] {label}: K2 launches by dtype {by_dtype}, by route {by_route}")
+        if not (all(by_dtype[d] > 0 for d in dtypes)
+                and by_route == {"small": 0, "resident": sum(by_dtype.values()), "general": 0}):
+            raise AssertionError(f"{label}: K2 launches must all take the resident route, "
+                                 f"> 0 in {dtypes}")
+
+    _reset_counts()
+    cold, cold_s = _timed(torch, lambda: solve_batch(data, mixed))
+    warm_pt = warm_from_result(cold)
+    warm, warm_s = _timed(torch, lambda: solve_batch(data_w, mixed, warm=warm_pt))
+    launches = k2_counts()
+    check_resident("mixed cold + warm", launches, ("float32", "float64"))
+    for label, res, secs, probs in (("cold", cold, cold_s, problems),
+                                    ("warm", warm, warm_s, moved)):
+        viol = _check_round(probs, res, f"D = 48 multistage mixed {label}")
+        it = res.info.iter.cpu().numpy()
+        print(f"[ms48 {label}] {B}/{B} SOLVED, {B / secs:.1f} solves/s ({secs * 1e3:.1f} ms, "
+              f"host clock), iterations median {np.median(it):.1f} max {it.max()}, worst KKT "
+              f"violation {viol:.2e}; {smi}")
+
+    _profile_round(torch, "ms48 warm", lambda: solve_batch(data_w, mixed, warm=warm_pt),
+                   warm_s, smi, ("chol_inv_apply_resident_kernel",))
+
+    _reset_counts()
+    res64, secs = _timed(torch, lambda: solve_batch(index(data, slice(0, MS48_B64)), f64))
+    launches64 = k2_counts()
+    check_resident("float64 cold", launches64, ("float64",))
+    viol = _check_round(problems[:MS48_B64], res64, "D = 48 multistage float64")
+    print(f"[ms48 f64] B={MS48_B64} {MS48_B64}/{MS48_B64} SOLVED, {MS48_B64 / secs:.1f} "
+          f"solves/s ({secs * 1e3:.1f} ms, host clock), iterations max "
+          f"{int(res64.info.iter.max())}, worst KKT {viol:.2e}; {smi}")
+
+    # problems 0-1 again on the CPU (plain versions): float64 follows the
+    # same trajectory (equal iterations); mixed precision rounds its
+    # float32 phase differently on each device
+    cpu = to_device(index(data, slice(0, 2)), "cpu")
+    _xcheck("ms48 float64, problems 0-1", solve_batch(cpu, f64), index(res64, slice(0, 2)),
+            mixed=False, tol=XCHECK_F64_TOL, same_iter=True)
+    _xcheck("ms48 mixed, problems 0-1", solve_batch(cpu, mixed), index(cold, slice(0, 2)),
+            mixed=True)
+    return {"by_dtype": {k: launches[0][k] + launches64[0][k] for k in launches[0]},
+            "by_route": {k: launches[1][k] + launches64[1][k] for k in launches[1]}}
+
+
 def main() -> int:
     import torch
 
@@ -1939,7 +2094,8 @@ def main() -> int:
           f"K2 float64 launches {grown}, worst KKT {viol:.2e}")
     k2_routes = dict(chol_inv.apply_launches_by_route)
     print(f"[ms] K2 launches by route in the mixed, float64 and T = 272 runs: {k2_routes}")
-    if k2_routes != {"small": sum(chol_inv.apply_launches_by_dtype.values()), "general": 0}:
+    if k2_routes != {"small": sum(chol_inv.apply_launches_by_dtype.values()), "resident": 0,
+                     "general": 0}:
         raise AssertionError(f"multistage K2 launches by route {k2_routes}: all must be small")
 
     # ---- 8. SparseSolver: structure detection, solve, update(c), warm solve
@@ -1993,6 +2149,8 @@ def main() -> int:
                    lambda: solve_batch(data7w, s_ms, warm=warm7_pt), warm7_s, smi,
                    ("chol_inv_apply_small_kernel", "chol_inv_apply_kernel"))
     for entry in kernels:
+        if entry["name"].startswith("chol_inv_apply_resident_"):
+            continue  # phase 17 counts the resident route's launches
         for prefix, counts in (("chol_inv_apply_", k2_launches),
                                ("signed_chol_inv_", k3_launches)):
             if entry["name"].startswith(prefix):
@@ -2005,7 +2163,7 @@ def main() -> int:
     if not (k1["resident"] > 0 and k1["cluster"] == 0):
         raise AssertionError(f"dense differentiable forward: K1 launches by route {k1}")
     k2b = _diff_stage_fleet(torch, smi, data7)
-    if not (k2b["small"] > 0 and k2b["general"] == 0):
+    if not (k2b["small"] > 0 and k2b["resident"] == k2b["general"] == 0):
         raise AssertionError(f"stage backward: K2 launches by route {k2b}; the adjoint factor "
                              f"must launch the small kernel")
     sq = _sqp_and_compaction(torch, smi, problems, moved, data, data_w, cold, warm_pt, settings)
@@ -2023,7 +2181,7 @@ def main() -> int:
              problems=lambda shift: stage_problems(MS_B, shift)),
         dict(data=data, settings=settings, cold=cold, cold_s=cold_s))
     for entry in kernels:
-        if entry["name"].startswith("chol_inv_apply_"):
+        if entry["kernel_route"] == "small":
             entry["horizon_launches"] = hz["k2"][entry["name"].removeprefix("chol_inv_apply_")]
     print(f"[phase 14] {time.perf_counter() - t_new:.1f} s")
 
@@ -2031,8 +2189,9 @@ def main() -> int:
     t_new = time.perf_counter()
     capi = _capi_phase(torch, smi, problems[0], moved[0]["c"], prob0, prob0["c"] + dc[0])
     for entry in kernels:
-        if entry["kernel_route"] == "cluster":
-            continue  # phase 15 runs n = 128: K1's resident route
+        if entry["kernel_route"] == "cluster" or entry["name"].startswith(
+                "chol_inv_apply_resident_"):
+            continue  # phase 15 runs n = 128 (K1's resident route) and D = 8 (K2's small)
         for prefix, kernel, cases in (("chol_inv_apply_", "K2", ("multistage",)),
                                       ("signed_chol_inv_", "K3", ("ldlt",)),
                                       ("chol_inv_", "K1", ("chol", "mixed"))):
@@ -2052,6 +2211,16 @@ def main() -> int:
             entry["n256_launches_by_route"] = n256["by_route"]
             entry["n256_launches_by_cluster"] = n256["by_cluster"]
     print(f"[phase 16] {time.perf_counter() - t_new:.1f} s")
+
+    # ---- 17. the D = 48 multistage fleet on K2's resident route
+    t_new = time.perf_counter()
+    ms48 = _wide_stage_phase(torch, smi)
+    for entry in kernels:
+        if entry["kernel_route"] == "resident" and entry["name"].startswith("chol_inv_apply_"):
+            entry["launches"] = ms48["by_dtype"][entry["name"].removeprefix(
+                "chol_inv_apply_resident_")]
+            entry["ms48_launches_by_route"] = ms48["by_route"]
+    print(f"[phase 17] {time.perf_counter() - t_new:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(f"[device] {smi}")

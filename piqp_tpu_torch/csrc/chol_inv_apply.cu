@@ -2,10 +2,14 @@
 // general route: one thread block per matrix.
 //
 // Replaces the TPU kernel piqp_tpu/ops/pallas_chol.py::_chol_inv_apply_kernel
-// for 33 <= n <= 256, and for smaller n whose right-hand block is too wide
-// for one warp's shared memory there; smaller blocks take
-// chol_inv_apply_small.cu, many to a thread block (ops/chol_inv.py routes
-// by shape).
+// for the shapes up to n = 256 that neither of the other two K2 kernels
+// takes: those whose n x (n + r) work square exceeds one block's shared
+// memory (with r = 2n + 4: n >= 139 in float32, n >= 98 in float64, and
+// any n with a wide enough r, such as n = 32 with r = 1800 in float32).
+// Every other n > 32 takes chol_inv_apply_resident.cu, n <= 32 with a
+// narrow right-hand block chol_inv_apply_small.cu (ops/chol_inv.py routes
+// by shape); no fleet's shape reaches this kernel any more (the D = 48
+// multistage fleet's n = 48, r = 100 runs on the resident route).
 // For each SPD block K (n x n) of an (N, n, n) batch and its right-hand
 // block RHS (n x r) it computes K1's factor L = chol(K) (strict upper
 // triangle zeroed) and Linv = L^-1 (chol_recurrence.cuh), then, in the same

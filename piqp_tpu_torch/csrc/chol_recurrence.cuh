@@ -1,6 +1,9 @@
 // The column recurrence of K2's general kernel (chol_inv_apply.cu): factor
 // K = L L^T in place and build Linv = L^-1 row by row, for one matrix per
-// thread block.
+// thread block.  The general kernel now takes only the shapes whose work
+// square [K | RHS] is too large for chol_inv_apply_resident.cu (with
+// r = 2n + 4: n 139-256 in float32, 98-256 in float64); no fleet's shape
+// reaches it.
 //
 //   d        = sqrt(W[j, j])            (W: running workspace)
 //   L[i, j]  = W[i, j] / d              for i >= j

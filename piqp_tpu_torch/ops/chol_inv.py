@@ -41,8 +41,13 @@ r)`` picks:
     ``group_lanes(n)`` lanes, placed by ``small_threads`` and
     ``small_smem_bytes`` (the kernel's own formulas), while one warp's
     matrices fit in shared memory;
-  - ``"general"``, ``csrc/chol_inv_apply.cu``, one block per matrix, up to
-    n = 256;
+  - ``"resident"``, ``csrc/chol_inv_apply_resident.cu``, one block of
+    ``resident_apply_threads(n)`` threads per matrix, the n x (n + r) work
+    square [K | RHS] in shared memory (``resident_apply_smem_bytes``), for
+    every n <= 256 whose square fits one block: with r = 2n + 4, n <= 138
+    in float32 and n <= 97 in float64;
+  - ``"general"``, ``csrc/chol_inv_apply.cu``, one block per matrix, for
+    the rest up to n = 256;
   - ``"library"`` above.
 On a CPU tensor it runs ``chol_inv_apply_reference``.
 """
@@ -134,6 +139,22 @@ def small_threads(n: int, r: int, itemsize: int) -> int:
     return 0 if small_smem_bytes(n, r, itemsize, t // group_lanes(n)) > SMEM_PER_BLOCK else t
 
 
+# K2's resident kernel: threads of a block up to n = RESIDENT_APPLY_SMALL_N
+# and above it
+RESIDENT_APPLY_SMALL_N = 64
+
+
+def resident_apply_smem_bytes(n: int, r: int, itemsize: int) -> int:
+    """Shared memory of the resident K2 kernel: the n x (n + r) work square
+    [K | RHS] with an odd row pitch ((n + r) | 1) and L's diagonal."""
+    return (n * ((n + r) | 1) + n) * itemsize
+
+
+def resident_apply_threads(n: int) -> int:
+    """Threads of a resident K2 block: 128 up to n = 64, 256 above."""
+    return 128 if n <= RESIDENT_APPLY_SMALL_N else 256
+
+
 # Kernel launches made by ``cholesky_with_inverse`` (never by the plain
 # version or the library route), per dtype, per route and, on the cluster
 # route, per cluster size (n > RESIDENT_MAX_N needs 2 or 3 blocks);
@@ -143,7 +164,7 @@ launches_by_dtype = {"float32": 0, "float64": 0}
 launches_by_route = {"resident": 0, "cluster": 0}
 launches_by_cluster = {c: 0 for c in range(2, MAX_CLUSTER + 1)}
 apply_launches_by_dtype = {"float32": 0, "float64": 0}
-apply_launches_by_route = {"small": 0, "general": 0}
+apply_launches_by_route = {"small": 0, "resident": 0, "general": 0}
 
 
 def kernel_route(n: int, dtype: torch.dtype) -> str:
@@ -257,19 +278,25 @@ def chol_inv_apply_reference(K: torch.Tensor, RHS: torch.Tensor):
 
 def apply_kernel_route(n: int, dtype: torch.dtype, r: int) -> str:
     """Where a CUDA batch of n x n blocks of ``dtype`` with r right-hand
-    columns goes: "small", "general" or "library"."""
+    columns goes: "small", "resident", "general" or "library"."""
     if n <= SMALL_MAX_N and small_threads(n, r, dtype.itemsize):
         return "small"
-    return "general" if n <= MAX_KERNEL_N else "library"
+    if n > MAX_KERNEL_N:
+        return "library"
+    if resident_apply_smem_bytes(n, r, dtype.itemsize) <= SMEM_PER_BLOCK:
+        return "resident"
+    return "general"
 
 
 # the C entry point of each K2 kernel route
-_APPLY_ENTRY = {"small": "piqp_chol_inv_apply_small", "general": "piqp_chol_inv_apply"}
+_APPLY_ENTRY = {"small": "piqp_chol_inv_apply_small",
+                "resident": "piqp_chol_inv_apply_resident",
+                "general": "piqp_chol_inv_apply"}
 
 
 def _launch_apply(K: torch.Tensor, RHS: torch.Tensor, route: str):
-    """Launch the K2 kernel of ``route`` ("small" or "general") on a CUDA
-    batch."""
+    """Launch the K2 kernel of ``route`` ("small", "resident" or
+    "general") on a CUDA batch."""
     from ._build import library
 
     if not (K.is_contiguous() and RHS.is_contiguous()):
@@ -296,9 +323,9 @@ def cholesky_inverse_apply(K: torch.Tensor, RHS: torch.Tensor):
     """(L, Linv, Y = K^-1 RHS) for an (N, n, n) batch of SPD blocks and an
     (N, n, r) batch of right-hand blocks, float32 or float64.
 
-    CUDA tensor: the small or the general kernel, or the library route with
-    the two products, as ``apply_kernel_route`` says.  CPU tensor: the
-    plain version.  Any other device raises."""
+    CUDA tensor: the small, resident or general kernel, or the library
+    route with the two products, as ``apply_kernel_route`` says.  CPU
+    tensor: the plain version.  Any other device raises."""
     _check(K)
     if RHS.dtype != K.dtype or RHS.ndim != 3 or RHS.shape[:2] != K.shape[:2]:
         raise ValueError(

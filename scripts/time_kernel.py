@@ -10,8 +10,13 @@ device memory, ``csrc/chol_inv.cu``), each beside
 the library (``cholesky`` + ``solve_triangular``) and K3's wrapper of the
 same checkout with every sign +1 (held to K1's plain version); K2 is
 ``ops/chol_inv.cholesky_inverse_apply`` at the multistage fleet's first
-cyclic-reduction level, N = 12,800, n = 8, r = 20, and at N = 5,376,
-n = 23, r = 50 (256 problems of T = 43, D = 23, Da = 4); K3 is
+cyclic-reduction level, N = 12,800, n = 8, r = 20, at N = 5,376, n = 23,
+r = 50 (256 problems of T = 43, D = 23, Da = 4), both on the small route,
+and at N = 2,560, n = 48, r = 100 (the D = 48 fleet's first level) and
+n = 64, r = 132, which take the resident route (``apply_kernel_route``
+names each shape's route; an older checkout sends them to the general
+kernel, so an A/B across checkouts times the redesigned route against
+it), with the ptxas lines of both the small and the resident kernel; K3 is
 ``ops/signed_chol_inv.signed_cholesky_with_inverse`` at the dense_ldlt
 fleet's B = 256, n = 256 and its float64 batch, B = 64.  Give two versions
 as parent, change, change, parent to compare them within one run.  For each
@@ -52,7 +57,8 @@ KERNELS = {
                instance=r"\d(?:chol_inv_resident|chol_inv|chol_inv_cluster)_kernel"),
     "K2": dict(module="chol_inv", wrapper="cholesky_inverse_apply",
                reference="chol_inv_apply_reference", batch="_apply_batch",
-               shapes=[(12800, 8, 20), (5376, 23, 50)], instance=r"\dchol_inv_apply_small_kernel"),
+               shapes=[(12800, 8, 20), (5376, 23, 50), (2560, 48, 100), (2560, 64, 132)],
+               instance=r"\dchol_inv_apply_(?:small|resident)_kernel"),
     "K3": dict(module="signed_chol_inv", wrapper="signed_cholesky_with_inverse",
                reference="signed_chol_inv_reference", batch="_quasidef_batch",
                shapes=[(256, 256), (64, 256)],

@@ -244,7 +244,8 @@ def test_float64_solve_above_the_resident_limit_matches_jax():
 # K2: factor + inverse + apply
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n,r", [(4, 12), (8, 20), (23, 50), (32, 68), (33, 70)])
+@pytest.mark.parametrize("n,r", [(4, 12), (8, 20), (23, 50), (32, 68), (33, 70), (48, 100),
+                                 (64, 132)])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_apply_reference_matches_jax_kernel(n, r, dtype):
     K = _spd_batch(5, n, seed=n + r)
@@ -291,8 +292,17 @@ def test_apply_wrapper_rejects_bad_input(K, RHS):
         (1, 6, torch.float64, "small"),
         (32, 68, torch.float32, "small"),
         (32, 68, torch.float64, "small"),
-        (33, 70, torch.float32, "general"),
-        (33, 70, torch.float64, "general"),
+        (33, 70, torch.float32, "resident"),
+        (33, 70, torch.float64, "resident"),
+        (48, 100, torch.float32, "resident"),
+        (48, 100, torch.float64, "resident"),
+        (64, 132, torch.float32, "resident"),
+        (64, 132, torch.float64, "resident"),
+        # the resident square's limit at r = 2n + 4, each side
+        (138, 280, torch.float32, "resident"),
+        (139, 282, torch.float32, "general"),
+        (97, 198, torch.float64, "resident"),
+        (98, 200, torch.float64, "general"),
         (256, 516, torch.float32, "general"),
         (256, 516, torch.float64, "general"),
         (257, 518, torch.float32, "library"),
@@ -304,6 +314,53 @@ def test_apply_wrapper_rejects_bad_input(K, RHS):
 )
 def test_apply_kernel_route(n, r, dtype, route):
     assert chol_inv.apply_kernel_route(n, dtype, r) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_resident_apply_layout_matches_the_kernel_source(dtype):
+    """The resident K2 kernel's shared-memory formula, block size, largest n
+    and per-block limit are the ones the route's Python mirror uses, so a
+    shape routed to it launches, and one the kernel refuses is not routed
+    to it."""
+    src = (Path(chol_inv.__file__).parents[1] / "csrc" / "chol_inv_apply_resident.cu").read_text()
+    max_n = int(re.search(r"constexpr int kMaxN = (\d+);", src).group(1))
+    small_n = int(re.search(r"constexpr int kSmallBlockN = (\d+);", src).group(1))
+    limit = int(re.search(r"constexpr int kSmemPerBlock = (\d+);", src).group(1))
+    smem = re.search(
+        r"constexpr int apply_smem_bytes\(int n, int r, int elem\) \{\s*return ([^;]+);\s*\}",
+        src).group(1)
+    threads = re.search(
+        r"constexpr int apply_threads\(int n\) \{\s*return n <= kSmallBlockN \? (\d+) : (\d+);",
+        src).groups()
+    assert (max_n, small_n, limit) == (
+        chol_inv.MAX_KERNEL_N, chol_inv.RESIDENT_APPLY_SMALL_N, chol_inv.SMEM_PER_BLOCK)
+    size = dtype.itemsize
+    for n in range(1, max_n + 1):
+        assert chol_inv.resident_apply_threads(n) == int(threads[0] if n <= small_n else threads[1])
+        for r in (0, 1, 3, 2 * n + 4, 100, 1780, 1800):
+            got = eval(smem, {}, {"n": n, "r": r, "elem": size})
+            assert got == chol_inv.resident_apply_smem_bytes(n, r, size)
+            route = chol_inv.apply_kernel_route(n, dtype, r)
+            # the launcher refuses a square above the limit
+            assert (route == "resident") == (got <= limit and route != "small")
+
+
+@pytest.mark.parametrize(
+    "n,r,dtype,threads,smem,per_sm",
+    [
+        (48, 100, torch.float32, 128, 28_800, 7),
+        (48, 100, torch.float64, 128, 57_600, 3),
+        (64, 132, torch.float32, 128, 50_688, 4),
+        (64, 132, torch.float64, 128, 101_376, 2),
+    ],
+)
+def test_resident_apply_placement_at_the_timed_shapes(n, r, dtype, threads, smem, per_sm):
+    """The placements the kernel's note states: threads, shared memory a
+    block and blocks an SM by shared memory (228 KB, 1 KB reserved per
+    block)."""
+    got = chol_inv.resident_apply_smem_bytes(n, r, dtype.itemsize)
+    assert (chol_inv.resident_apply_threads(n), got, 233_472 // (got + 1024)) == (
+        threads, smem, per_sm)
 
 
 @pytest.mark.parametrize("n,lanes", [(1, 4), (4, 4), (5, 8), (8, 8), (9, 16), (16, 16),
@@ -449,9 +506,9 @@ def test_no_k2_k3_launches_on_cpu():
               signed_chol_inv.launches_by_cluster)
     before = tuple(dict(c) for c in counts)
     for dt in (torch.float32, torch.float64):
-        # K2 on its small and general routes; K3 on a one-block and a
-        # clustered resident shape
-        for n in (6, 240):
+        # K2 on its small, resident and general routes; K3 on a one-block
+        # and a clustered resident shape
+        for n in (6, 48, 240):
             K = torch.as_tensor(_spd_batch(2, n, 0), dtype=dt)
             chol_inv.cholesky_inverse_apply(K, torch.ones((2, n, 4), dtype=dt))
             signed_chol_inv.signed_cholesky_with_inverse(K, torch.ones(n, dtype=dt))

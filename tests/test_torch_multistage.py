@@ -292,6 +292,8 @@ E2E = [
     ("cr-library", dict(T=17, D=3, Da=2, ra=2, rg=2), False, None),
     ("chunked", dict(T=36, D=3, Da=2, ra=2, rg=2), True, 20),
     ("chunked-cr", dict(T=34, D=3, Da=2, ra=2, rg=2), True, 20),
+    # a stage wider than 32: on the card K2 takes its resident route here
+    ("cr-wide", dict(T=17, D=33, Da=2, ra=2, rg=2), True, None),
 ]
 
 
