@@ -26,27 +26,35 @@ Phases:
      B = 256, n = 256, and bounds;
   2b. K2 (Cholesky with inverse and apply) and K3 (signed Cholesky with
      inverse) against their plain versions, float32 and float64.  K2 at
-     D in {4, 8, 16, 33, 64, 65, 97, 98, 128, 138, 139} (N = 5, R = 2D + 4:
-     each side of the resident route's limit, 138 / 139 in float32 and
-     97 / 98 in float64, and its first 256-thread block) and D = 33,
-     R = 300, at D in {1, 4, 7, 8, 9, 16, 23, 31, 32} with R = 3 and
-     R = 2D + 4 (N = 101, a ragged last block), at the multistage fleet's
-     shape N = 12,800, D = 8, R = 20, at N = 5,376, D = 23, R = 50, at the
-     horizon path's shapes and at every shape phase 17 launches (D = 48,
-     R = 100), each launch checked to take the route
+     D in {4, 8, 16, 33, 64, 65, 97, 98, 128, 138, 139, 144, 169, 170, 225,
+     226, 240, 241, 256} (N = 5, R = 2D + 4: each side of the resident
+     route's limit, 138 / 139 in float32 and 97 / 98 in float64, its first
+     256-thread block, and each side of K1's resident / cluster and
+     cluster-size limits inside the split route), at D in {75, 76, 107,
+     108} with R = 4D + 4 (the chunked and sharded interiors' width), at
+     D = 32 with R = 1800 and 900 and D = 33 with R = 300, at D in {1, 4,
+     7, 8, 9, 16, 23, 31, 32} with R = 3 and R = 2D + 4 (N = 101, a ragged
+     last block), at the multistage fleet's shape N = 12,800, D = 8,
+     R = 20, at N = 5,376, D = 23, R = 50, at the horizon path's shapes
+     and at every shape phases 17 (D = 48, R = 100) and 18 (D = 144,
+     R = 292) launch, each launch checked to take the route
      ``apply_kernel_route`` names (small up to D = 32 where it fits,
-     resident where the n x (n + R) square fits one block, general above;
-     the horizon shapes small, phase 17's resident); an indefinite block
-     in the middle of a batch and as the last group of a warp, on the small
-     route, and in the middle of a batch on the resident route; at the two
+     resident where the n x (n + R) square fits one block, split above:
+     K1's kernel, on the route and cluster size ``kernel_route`` and
+     ``cluster_size`` name, then the product kernel; the horizon shapes
+     small, phase 17's resident, phase 18's split); an indefinite block in
+     the middle of a batch and as the last group of a warp, on the small
+     route, in the middle of a batch on the resident route and on the
+     split route with a resident and with a cluster factor; at the two
      large small-route shapes the small kernel's device time (a CUDA graph
-     of launches) with warm and cold L2, its looped time, the general
-     kernel's, and at the fleet's shape the plain version's and the
-     library's; at N = 2,560, D in {48, 64}, R = 2D + 4 the resident
-     kernel's device and looped times beside the general kernel's
-     (``_launch_apply(..., "general")``) and the library route's (both
-     products included; looped and by device time), the bound, and at
-     D = 48 the plain version's.  K3 at
+     of launches) with warm and cold L2 and its looped time, and at the
+     fleet's shape the plain version's and the library's; at N = 2,560,
+     D in {48, 64}, R = 2D + 4 the resident kernel's device and looped
+     times beside the library route's (both products included; looped and
+     by device time), the bound, and at D = 48 the plain version's; at
+     phase 18's first level, N = 1,280, D = 144, R = 292, the split
+     route's device and looped times, its two kernels' device times, the
+     library route's, the plain version's and the bound.  K3 at
      Np in {64, 128, 168, 169, 192, 224, 225, 239, 240, 256} (B = 5, mixed
      sign patterns; both sides of each dtype's cluster-size limits) and at
      the dense_ldlt fleet's shape B = 256, Np = 256, each launch checked to
@@ -138,7 +146,19 @@ Phases:
      round of the first 32, every K2 launch on the resident route, by
      dtype and route; host KKT checks of every problem; problems 0-1 again
      on the CPU (float64: equal iterations, |dx| <= 1e-9; mixed: equal
-     status, |dx| <= 1e-4); a profile of the warm round with K2's share.
+     status, |dx| <= 1e-4); a profile of the warm round with K2's share;
+ 18. the D = 144 multistage fleet: 64 problems random_multistage_qp(T=41,
+     D=144, Da=4, ra=4, rg=4, seed=5000+i) (n = 5,908; the narrowest
+     stage at which both dtypes take K2's split route; K2 at N = 1,280,
+     640, 320, 192, 64 and 64 with R = 292, the bound of each), mixed cold
+     and one warm round after c += 1e-3 N(0, 1), and a float64 cold round
+     of the first 16, every K2 launch on the split route with its factor
+     on K1's resident kernel, by dtype and route; host KKT checks of every
+     problem (sparse, from the stage blocks); problems 0-1 again on the
+     CPU (float64: equal iterations, |dx| <= 1e-9; mixed: equal status,
+     |dx| <= 1e-4); a profile of the warm round with the factor's and the
+     product kernel's shares.  Phases 17 and 18 check the KKT conditions
+     on sparse matrices assembled from the stage blocks.
 The line before the last lists the kernels as JSON; the last line is the
 device summary.
 """
@@ -178,7 +198,7 @@ LDLT_B = 256
 # the multistage fleet (benchmarks/horizon_bench.py's shape at BASELINE
 # config 4's horizon): n = 804, p = 400, m = 400
 MS_B, MS_T, MS_D, MS_DA, MS_RA, MS_RG = 256, 100, 8, 4, 4, 4
-# K2's (N, D, R): the general kernel's shapes, R = 2D + 4; every n of the
+# K2's (N, D, R): the split route's shapes, R = 2D + 4; every n of the
 # small kernel with R below and above its group's lanes, at an N that no
 # block's matrix count divides (a ragged last block); then the timed
 # shapes, the multistage fleet's first level and the scenario_mpc-shaped
@@ -205,17 +225,33 @@ MS48_B, MS48_T, MS48_D, MS48_DA, MS48_B64 = 128, 41, 48, 4, 32
 MS48_LEVELS = (20, 10, 5, 3, 1, 1)
 K2_MS48 = sorted({(b * h, MS48_D, 2 * MS48_D + MS48_DA)
                   for b in (MS48_B, MS48_B64) for h in MS48_LEVELS})
+# phase 18: the D = 144 multistage fleet, 64 problems at the same horizon
+# with a stage three times phase 17's, the narrowest at which both dtypes
+# take K2's split route (float32 from D = 139, float64 from 98); K2 at
+# N = 64 times phase 17's levels, n = 144, R = 292, and its float64 round
+# of 16 at a quarter of each N
+MS144_B, MS144_D, MS144_B64 = 64, 144, 16
+K2_MS144 = sorted({(b * h, MS144_D, 2 * MS144_D + MS48_DA)
+                   for b in (MS144_B, MS144_B64) for h in MS48_LEVELS})
+K2_SPLIT_TIMED = max(K2_MS144)
 # K2's wide timed shapes (D > 32, where the small kernel stops): 2,560
 # blocks, R = 2D + 4; D = 48 is the phase-17 fleet's first level
 K2_WIDE_TIMED = [(2560, D, 2 * D + 4) for D in (48, 64)]
 # each side of the resident square's limit at R = 2D + 4 (138 / 139 in
-# float32, 97 / 98 in float64), n = 65 (the first 256-thread block), and a
-# right-hand block wider than one register tile
-K2_SHAPES = ([(5, D, 2 * D + 4) for D in (4, 8, 16, 33, 64, 65, 97, 98, 128, 138, 139)]
-             + [(5, 33, 300)]
+# float32, 97 / 98 in float64), n = 65 (the first 256-thread block), each
+# side of K1's limits inside the split route (resident / cluster 169 / 170
+# float64 and 240 / 241 float32; 2 / 3 blocks 225 / 226 float64), the
+# resident / split limit at R = 4D + 4 (75 / 76 float64, 107 / 108
+# float32), right-hand blocks too wide for the small route (D = 32) or
+# wider than one register tile (D = 33)
+K2_SHAPES = ([(5, D, 2 * D + 4) for D in (4, 8, 16, 33, 64, 65, 97, 98, 128, 138, 139, 144,
+                                          169, 170, 225, 226, 240, 241, 256)]
+             + [(5, D, 4 * D + 4) for D in (75, 76, 107, 108)]
+             + [(5, 32, 1800), (5, 32, 900), (5, 33, 300)]
              + [(K2_RAGGED_N, D, R) for D in (1, 4, 7, 8, 9, 16, 23, 31, 32)
                 for R in (3, 2 * D + 4)]
-             + [K2_FLEET, K2_D23] + K2_HORIZON + sorted(set(K2_MS48 + K2_WIDE_TIMED)))
+             + [K2_FLEET, K2_D23] + K2_HORIZON + sorted(set(K2_MS48 + K2_WIDE_TIMED))
+             + K2_MS144)
 # rotated input sets of the cold-L2 timing: more than the 50 MB L2 holds
 K2_COLD_SETS = 8
 K3_SHAPES = [(5, 64), (5, 128), (5, 168), (5, 169), (5, 192), (5, 224), (5, 225), (5, 239),
@@ -327,13 +363,23 @@ def _spd_batch(torch, B, n, dtype, seed):
 def _optimality(prob: dict, x, y, z_l, z_u, z_bl, z_bu) -> float:
     """Worst scaled violation of the KKT conditions of one solution on the
     original data, in float64 (tests/helpers.check_optimality's checks):
-    primal feasibility, dual feasibility, stationarity, duality gap."""
-    P = np.triu(prob["P"]) + np.triu(prob["P"], 1).T
-    c, A, b, G = prob["c"], prob["A"], prob["b"], prob["G"].copy()
+    primal feasibility, dual feasibility, stationarity, duality gap.  P, A
+    and G are dense arrays (P read from its upper triangle) or
+    scipy.sparse matrices (P whole, as ``_stage_problem_sparse`` builds
+    it)."""
+    import scipy.sparse as sp
+
+    c, A, b = prob["c"], prob["A"], prob["b"]
     h_l, h_u, x_l, x_u = prob["h_l"], prob["h_u"], prob["x_l"], prob["x_u"]
     inf = 1e30
     hl, hu, xl, xu = h_l > -inf, h_u < inf, x_l > -inf, x_u < inf
-    G[~hl & ~hu] = 0.0
+    if sp.issparse(prob["P"]):
+        P = prob["P"]
+        G = (sp.diags((hl | hu).astype(float)) @ prob["G"]).tocsr()
+    else:
+        P = np.triu(prob["P"]) + np.triu(prob["P"], 1).T
+        G = prob["G"].copy()
+        G[~hl & ~hu] = 0.0
     scale = max(1.0, np.abs(x).max(initial=0.0))
     Gx = G @ x
     primal = max(
@@ -381,7 +427,8 @@ def _reset_counts() -> None:
     for counts in (chol_inv.launches_by_dtype, chol_inv.launches_by_route,
                    chol_inv.launches_by_cluster,
                    chol_inv.apply_launches_by_dtype, chol_inv.apply_launches_by_route,
-                   signed_chol_inv.launches_by_dtype,
+                   chol_inv.apply_factor_launches_by_route,
+                   chol_inv.apply_factor_launches_by_cluster, signed_chol_inv.launches_by_dtype,
                    signed_chol_inv.launches_by_route, signed_chol_inv.launches_by_cluster):
         for k in counts:
             counts[k] = 0
@@ -434,21 +481,50 @@ def _bound(name, nbytes, flops):
 
 
 def _check_k2(torch, smi) -> list:
-    """K2 against its plain version on the card on both kernel routes;
-    device, looped and cold-L2 times at the fleet's shape and at D = 23."""
+    """K2 against its plain version on the card on every kernel route;
+    device, looped and cold-L2 times at the fleet's shape and at D = 23, the
+    resident route's at D = 48 and 64, the split route's at phase 18's first
+    level."""
     from piqp_tpu_torch.ops import chol_inv
 
     def routed(K, RHS):
         """cholesky_inverse_apply, checked to launch the route
-        apply_kernel_route names."""
-        route = chol_inv.apply_kernel_route(K.shape[-1], K.dtype, RHS.shape[-1])
-        before = dict(chol_inv.apply_launches_by_route)
+        apply_kernel_route names and, on the split route, to factor on the
+        route and cluster size kernel_route and cluster_size name; returns
+        the route's label and the outputs."""
+        n, dtype = K.shape[-1], K.dtype
+        route = chol_inv.apply_kernel_route(n, dtype, RHS.shape[-1])
+        counts = (chol_inv.apply_launches_by_route, chol_inv.apply_factor_launches_by_route,
+                  chol_inv.apply_factor_launches_by_cluster)
+        before = [dict(c) for c in counts]
         out = chol_inv.cholesky_inverse_apply(K, RHS)
-        grown = {k: chol_inv.apply_launches_by_route[k] - before[k] for k in before}
-        if grown != {k: int(k == route) for k in before}:
-            raise AssertionError(f"K2 n={K.shape[-1]} r={RHS.shape[-1]} {K.dtype}: route "
-                                 f"{route}, launches {grown}")
-        return route, out
+        grown = [{k: c[k] - b[k] for k in b} for c, b in zip(counts, before)]
+        factor = chol_inv.kernel_route(n, dtype) if route == "split" else None
+        cluster = chol_inv.cluster_size(n, dtype) if factor == "cluster" else None
+        want = [{k: int(k == key) for k in b} for key, b in zip((route, factor, cluster), before)]
+        if grown != want:
+            raise AssertionError(f"K2 n={n} r={RHS.shape[-1]} {dtype}: route {route}, factor "
+                                 f"{factor}, cluster {cluster}, launches {grown}")
+        label = route if factor is None else f"split/{factor}" + (
+            f" c={cluster}" if cluster else "")
+        return route, label, out
+
+    def library_of(K, RHS):
+        """The library route (cholesky_ex, solve_triangular, both
+        products), one PyTorch composition the port never calls."""
+        eye = torch.eye(K.shape[-1], dtype=K.dtype, device="cuda").expand_as(K)
+
+        def library():
+            Lc = torch.linalg.cholesky_ex(K)[0]
+            Li = torch.linalg.solve_triangular(Lc, eye, upper=False)
+            return Li.mT @ (Li @ RHS)
+
+        return library
+
+    def bound(name, K, RHS):
+        N, D, R = RHS.shape
+        return _bound(name, (_factor_elements(N, D) + 2 * N * D * R) * K.element_size(),
+                      N * (2 * D ** 3 / 3 + 2 * D * D * R))
 
     entries = []
     for dtype in (torch.float32, torch.float64):
@@ -457,42 +533,48 @@ def _check_k2(torch, smi) -> list:
         worst_route = {}
         for N, D, R in K2_SHAPES:
             K, RHS = _apply_batch(torch, N, D, R, dtype, seed=D + R)
-            route, (L, Linv, Y) = routed(K, RHS)
+            route, label, (L, Linv, Y) = routed(K, RHS)
             if (N, D, R) in K2_HORIZON and route != "small":
                 raise AssertionError(f"K2 {name} N={N} D={D} R={R}: the horizon path's shape "
                                      f"takes the {route} route")
             if (N, D, R) in K2_MS48 + K2_WIDE_TIMED and route != "resident":
                 raise AssertionError(f"K2 {name} N={N} D={D} R={R}: the D = 48 fleet's or a "
                                      f"timed wide shape takes the {route} route")
+            if (N, D, R) in K2_MS144 and route != "split":
+                raise AssertionError(f"K2 {name} N={N} D={D} R={R}: the D = 144 fleet's shape "
+                                     f"takes the {route} route")
             torch.cuda.synchronize()
             L_ref, Linv_ref, Y_ref = chol_inv.chol_inv_apply_reference(K, RHS)
             eye = torch.eye(D, dtype=dtype, device="cuda")
             err_L = (L - L_ref).abs().max().item()
             err_I = (L @ Linv - eye).abs().max().item()
             err_Y = (Y - Y_ref).abs().max().item()
-            print(f"[K2 {name}] {route} N={N} D={D} R={R}: |L-L_ref| {err_L:.3e} "
+            print(f"[K2 {name}] {label} N={N} D={D} R={R}: |L-L_ref| {err_L:.3e} "
                   f"|L Linv - I| {err_I:.3e} |Y-Y_ref| {err_Y:.3e}")
             if not (err_L <= tol * max(1.0, L_ref.abs().max().item())
                     and err_I <= 50 * tol
                     and err_Y <= K2_Y_RTOL[name] * Y_ref.abs().max().item()):
-                raise AssertionError(f"K2 {name} {route} N={N} D={D} R={R} disagrees with its "
+                raise AssertionError(f"K2 {name} {label} N={N} D={D} R={R} disagrees with its "
                                      f"plain version")
             if bool(torch.triu(L, 1).any()) or bool(torch.triu(Linv, 1).any()):
-                raise AssertionError(f"K2 {name} {route} D={D}: nonzero upper triangle")
+                raise AssertionError(f"K2 {name} {label} D={D}: nonzero upper triangle")
             worst_route[route] = max(worst_route.get(route, 0.0), err_L, err_Y)
         # one indefinite block gives non-finite output for itself only: in
         # the middle of a batch, and as the last group of a warp whose
-        # neighbours share its warp and the next one
-        for N, D, R, bad in ((4, 12, 28, 2), (8, 8, 20, 3), (16, 3, 10, 7), (5, 48, 100, 2)):
+        # neighbours share its warp and the next one; on the split route
+        # with a resident and with a cluster factor
+        for N, D, R, bad in ((4, 12, 28, 2), (8, 8, 20, 3), (16, 3, 10, 7), (5, 48, 100, 2),
+                             (5, 144, 292, 2), (5, 256, 516, 2)):
             K = _spd_batch(torch, N, D, dtype, seed=1)
             K[bad, D // 2, D // 2] = -1e3
-            route, (L, Linv, Y) = routed(K, torch.ones((N, D, R), dtype=dtype, device="cuda"))
+            route, label, (L, Linv, Y) = routed(
+                K, torch.ones((N, D, R), dtype=dtype, device="cuda"))
             fin = [bool(torch.isfinite(a[i]).all()) for i in range(N) for a in (L, Linv, Y)]
             want = [i != bad for i in range(N) for _ in range(3)]
-            print(f"[K2 {name}] {route} N={N} D={D}: indefinite block {bad}, finite blocks "
+            print(f"[K2 {name}] {label} N={N} D={D}: indefinite block {bad}, finite blocks "
                   f"{[i for i in range(N) if fin[3 * i]]}")
             if fin != want:
-                raise AssertionError(f"K2 {name} {route} D={D}: indefinite block {bad} gave "
+                raise AssertionError(f"K2 {name} {label} D={D}: indefinite block {bad} gave "
                                      f"finite flags {fin}")
 
         timed = {}
@@ -502,84 +584,79 @@ def _check_k2(torch, smi) -> list:
                 raise AssertionError(f"K2 {name} D={D} R={R} is not routed to the small kernel")
             sets = [_apply_batch(torch, N, D, R, dtype, seed=100 + i) for i in range(K2_COLD_SETS)]
             small = lambda: chol_inv.cholesky_inverse_apply(K, RHS)
-            general = lambda: chol_inv._launch_apply(K, RHS, "general")
             t = dict(
                 ms=_graph_ms(torch, [small]),
                 ms_cold_l2=_graph_ms(torch, [lambda a=a: chol_inv.cholesky_inverse_apply(*a)
                                              for a in sets]),
                 looped_ms=_time_ms(torch, small),
-                general_ms=_graph_ms(torch, [general]),
-                general_cold_l2_ms=_graph_ms(torch, [lambda a=a: chol_inv._launch_apply(
-                    *a, "general") for a in sets]),
-                general_looped_ms=_time_ms(torch, general),
             )
             del sets
-            t["bound_ms"], t["bound_by"] = _bound(
-                name, (_factor_elements(N, D) + 2 * N * D * R) * K.element_size(),
-                N * (2 * D ** 3 / 3 + 2 * D * D * R))
+            t["bound_ms"], t["bound_by"] = bound(name, K, RHS)
             if (N, D, R) == K2_FLEET:
-                eye = torch.eye(D, dtype=dtype, device="cuda").expand_as(K)
-
-                def library():
-                    Lc = torch.linalg.cholesky_ex(K)[0]
-                    Li = torch.linalg.solve_triangular(Lc, eye, upper=False)
-                    return Li.mT @ (Li @ RHS)
-
-                t["library_ms"] = _time_ms(torch, library)
+                t["library_ms"] = _time_ms(torch, library_of(K, RHS))
                 t["plain_ms"] = _time_ms(torch, lambda: chol_inv.chol_inv_apply_reference(K, RHS),
                                          count=3, windows=1)
             l2 = " (under the HBM bound: it reads the L2)" if t["ms"] < t["bound_ms"] else ""
             print(f"[K2 {name}] N={N} D={D} R={R}: small kernel device {t['ms']:.4f} ms warm L2"
-                  f"{l2}, {t['ms_cold_l2']:.4f} ms cold L2, looped {t['looped_ms']:.4f} ms; "
-                  f"general kernel device {t['general_ms']:.4f} ms warm, "
-                  f"{t['general_cold_l2_ms']:.4f} cold, looped {t['general_looped_ms']:.4f}; "
-                  f"general/small {t['general_ms'] / t['ms']:.2f}x warm, "
-                  f"{t['general_cold_l2_ms'] / t['ms_cold_l2']:.2f}x cold; bound "
+                  f"{l2}, {t['ms_cold_l2']:.4f} ms cold L2, looped {t['looped_ms']:.4f} ms; bound "
                   f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}), cold/bound "
                   f"{t['ms_cold_l2'] / t['bound_ms']:.2f}x; {smi}")
             if "plain_ms" in t:
                 print(f"[K2 {name}] N={N} D={D} R={R}: plain {t['plain_ms']:.4f} ms, library "
                       f"{t['library_ms']:.4f} ms; {smi}")
             timed[D] = t
-        # the resident kernel at the wide shapes against the general kernel
-        # (chol_inv_apply.cu) and the library route (both products included)
+        # the resident kernel at the wide shapes against the library route
+        # (both products included)
         wide = {}
         for N, D, R in K2_WIDE_TIMED:
             K, RHS = _apply_batch(torch, N, D, R, dtype, seed=7)
             if chol_inv.apply_kernel_route(D, dtype, R) != "resident":
                 raise AssertionError(f"K2 {name} D={D} R={R} is not routed to the resident kernel")
-            eye = torch.eye(D, dtype=dtype, device="cuda").expand_as(K)
-
-            def library():
-                Lc = torch.linalg.cholesky_ex(K)[0]
-                Li = torch.linalg.solve_triangular(Lc, eye, upper=False)
-                return Li.mT @ (Li @ RHS)
-
             kernel = lambda: chol_inv.cholesky_inverse_apply(K, RHS)
-            general = lambda: chol_inv._launch_apply(K, RHS, "general")
+            library = library_of(K, RHS)
             g = dict(ms=_graph_ms(torch, [kernel]), looped_ms=_time_ms(torch, kernel),
-                     general_ms=_graph_ms(torch, [general]),
-                     general_looped_ms=_time_ms(torch, general),
                      library_ms=_time_ms(torch, library),
                      library_graph_ms=_graph_ms(torch, [library]))
-            g["bound_ms"], g["bound_by"] = _bound(
-                name, (_factor_elements(N, D) + 2 * N * D * R) * K.element_size(),
-                N * (2 * D ** 3 / 3 + 2 * D * D * R))
+            g["bound_ms"], g["bound_by"] = bound(name, K, RHS)
             if D == MS48_D:
                 g["plain_ms"] = _time_ms(torch, lambda: chol_inv.chol_inv_apply_reference(K, RHS),
                                          count=3, windows=1)
             print(f"[K2 {name}] resident N={N} D={D} R={R}: kernel device {g['ms']:.4f} ms, "
-                  f"looped {g['looped_ms']:.4f} ms; general kernel device "
-                  f"{g['general_ms']:.4f} ms, looped {g['general_looped_ms']:.4f} ms; library "
-                  f"route looped {g['library_ms']:.4f} ms, device {g['library_graph_ms']:.4f} ms; "
-                  f"library/kernel looped {g['library_ms'] / g['looped_ms']:.2f}x, "
-                  f"general/kernel looped {g['general_looped_ms'] / g['looped_ms']:.2f}x; bound "
-                  f"{g['bound_ms'] * 1e3:.2f} us ({g['bound_by']}), device/bound "
-                  f"{g['ms'] / g['bound_ms']:.2f}x; {smi}")
+                  f"looped {g['looped_ms']:.4f} ms; library route looped {g['library_ms']:.4f} "
+                  f"ms, device {g['library_graph_ms']:.4f} ms; library/kernel looped "
+                  f"{g['library_ms'] / g['looped_ms']:.2f}x; bound {g['bound_ms'] * 1e3:.2f} us "
+                  f"({g['bound_by']}), device/bound {g['ms'] / g['bound_ms']:.2f}x; {smi}")
             if "plain_ms" in g:
                 print(f"[K2 {name}] resident N={N} D={D} R={R}: plain {g['plain_ms']:.4f} ms; "
                       f"{smi}")
             wide[D] = g
+        # the split route at phase 18's first level: the route, each of its
+        # two kernels alone, the library route and the plain version
+        N, D, R = K2_SPLIT_TIMED
+        K, RHS = _apply_batch(torch, N, D, R, dtype, seed=7)
+        if chol_inv.apply_kernel_route(D, dtype, R) != "split":
+            raise AssertionError(f"K2 {name} D={D} R={R} is not routed to the split route")
+        factor = chol_inv.kernel_route(D, dtype)
+        _, Linv, _ = chol_inv.cholesky_inverse_apply(K, RHS)
+        split = lambda: chol_inv.cholesky_inverse_apply(K, RHS)
+        library = library_of(K, RHS)
+        sp_t = dict(ms=_graph_ms(torch, [split]), looped_ms=_time_ms(torch, split),
+                    factor_ms=_graph_ms(torch, [lambda: chol_inv._launch_factor(K, factor)]),
+                    product_ms=_graph_ms(torch, [lambda: chol_inv._launch_product(Linv, RHS)]),
+                    library_ms=_time_ms(torch, library),
+                    library_graph_ms=_graph_ms(torch, [library]),
+                    plain_ms=_time_ms(torch, lambda: chol_inv.chol_inv_apply_reference(K, RHS),
+                                      count=3, windows=1))
+        sp_t["bound_ms"], sp_t["bound_by"] = bound(name, K, RHS)
+        print(f"[K2 {name}] split N={N} D={D} R={R}: route device {sp_t['ms']:.4f} ms, looped "
+              f"{sp_t['looped_ms']:.4f} ms; factor ({factor}) {sp_t['factor_ms']:.4f} ms "
+              f"({100 * sp_t['factor_ms'] / sp_t['ms']:.1f}%), product "
+              f"{sp_t['product_ms']:.4f} ms ({100 * sp_t['product_ms'] / sp_t['ms']:.1f}%); "
+              f"library route looped {sp_t['library_ms']:.4f} ms, device "
+              f"{sp_t['library_graph_ms']:.4f} ms; library/split looped "
+              f"{sp_t['library_ms'] / sp_t['looped_ms']:.2f}x; plain {sp_t['plain_ms']:.4f} ms; "
+              f"bound {sp_t['bound_ms']:.4f} ms ({sp_t['bound_by']}), device/bound "
+              f"{sp_t['ms'] / sp_t['bound_ms']:.2f}x; {smi}")
         fleet = timed[K2_FLEET[1]]
         entries.append(dict(
             name=f"chol_inv_apply_{name}", route="cuda", kernel_route="small",
@@ -587,9 +664,8 @@ def _check_k2(torch, smi) -> list:
             replaces="piqp_tpu/ops/pallas_chol.py:270",
             launches=None, max_abs_err=worst_route["small"], ms=fleet["ms"],
             ms_cold_l2=fleet["ms_cold_l2"], looped_ms=fleet["looped_ms"],
-            general_ms=fleet["general_ms"], library_ms=fleet["library_ms"],
-            plain_ms=fleet["plain_ms"], bound_ms=fleet["bound_ms"], bound_by=fleet["bound_by"],
-            d23=timed[K2_D23[1]],
+            library_ms=fleet["library_ms"], plain_ms=fleet["plain_ms"],
+            bound_ms=fleet["bound_ms"], bound_by=fleet["bound_by"], d23=timed[K2_D23[1]],
         ))
         w48 = wide[MS48_D]
         entries.append(dict(
@@ -597,11 +673,17 @@ def _check_k2(torch, smi) -> list:
             source="piqp_tpu_torch/csrc/chol_inv_apply_resident.cu",
             replaces="piqp_tpu/ops/pallas_chol.py:270",
             launches=None, max_abs_err=worst_route["resident"], ms=w48["ms"],
-            looped_ms=w48["looped_ms"], general_ms=w48["general_ms"],
-            general_looped_ms=w48["general_looped_ms"], library_ms=w48["library_ms"],
+            looped_ms=w48["looped_ms"], library_ms=w48["library_ms"],
             library_graph_ms=w48["library_graph_ms"], plain_ms=w48["plain_ms"],
-            bound_ms=w48["bound_ms"], bound_by=w48["bound_by"],
-            d64=wide[64],
+            bound_ms=w48["bound_ms"], bound_by=w48["bound_by"], d64=wide[64],
+        ))
+        entries.append(dict(
+            name=f"chol_inv_apply_split_{name}", route="cuda", kernel_route="split",
+            source="piqp_tpu_torch/csrc/chol_inv_apply_product.cu",
+            factor_source="piqp_tpu_torch/csrc/chol_inv_resident.cu" if factor == "resident"
+            else "piqp_tpu_torch/csrc/signed_chol_inv_resident.cu",
+            replaces="piqp_tpu/ops/pallas_chol.py:270",
+            launches=None, max_abs_err=worst_route["split"], **sp_t,
         ))
     return entries
 
@@ -723,6 +805,48 @@ def _stage_problem(ms, kw: dict, c=None) -> dict:
     )
 
 
+def _stage_problem_sparse(kw: dict, c=None) -> dict:
+    """One multistage problem as ``_optimality``'s dict, with P (full,
+    symmetric), A and G as scipy.sparse matrices assembled from its stage
+    blocks in ``multistage.to_dense``'s layout: for stages too wide to
+    densify a fleet of."""
+    import scipy.sparse as sp
+
+    Pd, Psub, Pa, Pc = kw["Pd"], kw["Psub"], kw["Pa"], kw["Pc"]
+    T, D, _ = Pd.shape
+    Da = Pc.shape[0]
+    n = T * D + Da
+    t = np.arange(T) * D
+    g = np.full(T, T * D)
+
+    def assemble(blocks, shape):
+        """A CSR matrix from (row offsets, column offsets, (k, a, b) blocks)."""
+        rows, cols, vals = [], [], []
+        for r0, c0, M in blocks:
+            k, a, b = M.shape
+            rows.append(np.broadcast_to(np.asarray(r0)[:, None, None]
+                                        + np.arange(a)[None, :, None], M.shape).ravel())
+            cols.append(np.broadcast_to(np.asarray(c0)[:, None, None]
+                                        + np.arange(b)[None, None, :], M.shape).ravel())
+            vals.append(M.ravel())
+        return sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+                             shape=shape)
+
+    P = assemble([(t, t, Pd), (t[:-1] + D, t[:-1], Psub[:-1]),
+                  (t[:-1], t[:-1] + D, Psub[:-1].transpose(0, 2, 1)),
+                  (g, t, Pa), (t, g, Pa.transpose(0, 2, 1)), ([T * D], [T * D], Pc[None])],
+                 (n, n))
+
+    def constraints(M1, M2, Mg):
+        r = M1.shape[1]
+        rows = np.arange(T) * r
+        return assemble([(rows, t, M1), (rows[:-1], t[1:], M2[:-1]), (rows, g, Mg)], (T * r, n))
+
+    return dict(P=P, c=kw["c"] if c is None else c, A=constraints(kw["A1"], kw["A2"], kw["Ag"]),
+                b=kw["b"], G=constraints(kw["G1"], kw["G2"], kw["Gg"]), h_l=kw["h_l"],
+                h_u=kw["h_u"], x_l=np.full(n, -np.inf), x_u=np.full(n, np.inf))
+
+
 def _timed(torch, fn, dev="cuda"):
     _sync(torch, dev)
     t = time.perf_counter()
@@ -747,10 +871,12 @@ def _profile_round(torch, label, fn, unprofiled_s, smi, kernel_names=()):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in rows)
     launches = sum(e.count for e in rows)
-    ours = sum(e.self_device_time_total for e in rows
-               if any(k in e.key for k in kernel_names))
-    share = f", {' / '.join(kernel_names)} {100 * ours / max(busy_us, 1e-9):.1f}% of it" \
-        if kernel_names else ""
+    ours = {k: sum(e.self_device_time_total for e in rows if k in e.key) for k in kernel_names}
+    share = f", {' / '.join(kernel_names)} {100 * sum(ours.values()) / max(busy_us, 1e-9):.1f}% " \
+        f"of it" if kernel_names else ""
+    if len(kernel_names) > 1:
+        share += " (" + ", ".join(f"{k} {100 * v / max(busy_us, 1e-9):.1f}%"
+                                  for k, v in ours.items()) + ")"
     print(f"[profile {label}] kernel time {busy_us / 1e3:.1f} ms in {launches} launches of "
           f"{len(rows)} kernels{share}; device busy {100 * busy_us / (unprofiled_s * 1e6):.1f}% "
           f"of the unprofiled round ({unprofiled_s * 1e3:.1f} ms), "
@@ -1185,7 +1311,7 @@ def _horizon_phase(torch, smi, fleet: dict, dense: dict) -> dict:
                   f"K2 launches by route at 4 chunks {k2_by_chunks[4]}, at 8 chunks "
                   f"{k2_by_chunks[8]}")
             if not (k2_by_chunks[4]["small"] > 0
-                    and k2_by_chunks[4]["resident"] == k2_by_chunks[4]["general"] == 0
+                    and k2_by_chunks[4]["resident"] == k2_by_chunks[4]["split"] == 0
                     and calls["factor"] > 0 and calls["solve"] > 0):
                 raise AssertionError("config 4 at 4 chunks: the sharded factor did not launch "
                                      "the small K2 kernel")
@@ -1234,7 +1360,7 @@ def _horizon_phase(torch, smi, fleet: dict, dense: dict) -> dict:
             print(f"[horizon fleet] K2 launches by route {k2_fleet}; phase 14's K2 launches by "
                   f"dtype {k2_by_dtype}")
             if not (grew and k2_fleet["small"] > 0
-                    and k2_fleet["resident"] == k2_fleet["general"] == 0):
+                    and k2_fleet["resident"] == k2_fleet["split"] == 0):
                 raise AssertionError(f"sharded fleet: K2 launches {k2_fleet}, sharded calls "
                                      f"grew {grew}")
             multistage.cholesky_inverse_apply = kernel
@@ -1637,12 +1763,18 @@ def _dense256_phase(torch, smi) -> dict:
     return dict(zip(("by_dtype", "by_route", "by_cluster"), launches))
 
 
-def _wide_stage_phase(torch, smi) -> dict:
-    """Phase 17: the D = 48 multistage fleet, mixed cold and one warm round
-    (and a profile of the warm round) and a float64 cold round of 32, every
-    K2 launch on the resident route; problems 0-1 again on the CPU.
+def _wide_stage_phase(torch, smi, tag: str, B: int, D: int, B64: int, seed0: int,
+                      noise_seed: int, route: str, levels: list, kernels: tuple) -> dict:
+    """Phases 17 and 18: a multistage fleet of B problems at T = 41 with
+    stages D wide (seeds seed0 + i), mixed cold and one warm round after
+    c += 1e-3 N(0, 1) (and a profile of the warm round, with the shares of
+    ``kernels``) and a float64 cold round of the first B64, every K2 launch
+    on ``route`` (on the split route with its factor on the route
+    ``kernel_route`` names); host KKT checks of every problem on sparse
+    matrices assembled from its stage blocks; problems 0-1 again on the CPU.
+    ``levels`` are the K2 shapes the fleet launches, whose bounds it prints.
     Returns the fleet's K2 launches (mixed rounds and float64 round) by
-    dtype and by route."""
+    dtype, by route and, on the split route, by factor route."""
     import dataclasses
 
     from piqp_tpu_torch import Settings, solve_batch, warm_from_result
@@ -1650,46 +1782,58 @@ def _wide_stage_phase(torch, smi) -> dict:
     from piqp_tpu_torch.ops import chol_inv
     from piqp_tpu_torch.types import index, to_device
 
-    B, T, D = MS48_B, MS48_T, MS48_D
+    T = MS48_T
     dims = dict(T=T, D=D, Da=MS48_DA, ra=4, rg=4)
     if not ms._use_cr(T):
         raise AssertionError(f"T = {T} does not select cyclic reduction")
-    seeds = [4000 + i for i in range(B)]
+    seeds = [seed0 + i for i in range(B)]
     t0 = time.perf_counter()
     data = ms.random_multistage_batch(seeds, **dims, device="cuda")
-    rng = np.random.default_rng(2027)
+    rng = np.random.default_rng(noise_seed)
     dc = rng.standard_normal((B, data.n)) * 1e-3
     data_w = dataclasses.replace(data, c=data.c + torch.as_tensor(dc, device="cuda"))
     _sync(torch, "cuda")
-    kws = [ms.random_multistage_arrays(seed=s, **dims) for s in seeds]
-    problems = [_stage_problem(ms, kw) for kw in kws]
-    moved = [dict(p, c=kw["c"] + dc[i]) for i, (p, kw) in enumerate(zip(problems, kws))]
-    print(f"[ms48] prepared {B} problems T={T} D={D} Da={MS48_DA} (n={data.n} p={data.p} "
+    base = [_stage_problem_sparse(ms.random_multistage_arrays(seed=s, **dims)) for s in seeds]
+
+    def problems(count=B, shift=None):
+        """The first ``count`` problems, c moved by ``shift``."""
+        return [p if shift is None else dict(p, c=p["c"] + shift[i])
+                for i, p in enumerate(base[:count])]
+
+    print(f"[{tag}] prepared {B} problems T={T} D={D} Da={MS48_DA} (n={data.n} p={data.p} "
           f"m={data.m}) in {time.perf_counter() - t0:.2f} s")
     R = 2 * D + MS48_DA
     for dt in (torch.float32, torch.float64):
-        if chol_inv.apply_kernel_route(D, dt, R) != "resident":
-            raise AssertionError(f"D = {D}, R = {R} is not routed to the resident K2 kernel")
-    for N, _, _ in K2_MS48:
+        if chol_inv.apply_kernel_route(D, dt, R) != route:
+            raise AssertionError(f"D = {D}, R = {R} is not routed to K2's {route} route")
+    for N, _, _ in levels:
         bounds = [_bound(name, (_factor_elements(N, D) + 2 * N * D * R) * size,
                          N * (2 * D ** 3 / 3 + 2 * D * D * R))
                   for name, size in (("float32", 4), ("float64", 8))]
-        print(f"[ms48] K2 level shape N={N} D={D} R={R}: bound float32 "
-              f"{bounds[0][0] * 1e3:.2f} us, float64 {bounds[1][0] * 1e3:.2f} us "
-              f"({bounds[0][1]})")
+        print(f"[{tag}] K2 level shape N={N} D={D} R={R}: bound float32 "
+              f"{bounds[0][0] * 1e3:.2f} us ({bounds[0][1]}), float64 {bounds[1][0] * 1e3:.2f} us "
+              f"({bounds[1][1]})")
     mixed, f64 = Settings(mixed_precision=True), Settings()
     solve_batch(index(data, slice(0, 2)), mixed)  # warm-up
 
     def k2_counts():
-        return dict(chol_inv.apply_launches_by_dtype), dict(chol_inv.apply_launches_by_route)
+        return (dict(chol_inv.apply_launches_by_dtype), dict(chol_inv.apply_launches_by_route),
+                dict(chol_inv.apply_factor_launches_by_route))
 
-    def check_resident(label, counts, dtypes):
-        """Every K2 launch of a run on the resident route, > 0 per dtype."""
-        by_dtype, by_route = counts
-        print(f"[ms48] {label}: K2 launches by dtype {by_dtype}, by route {by_route}")
+    def check_route(label, counts, dtypes):
+        """Every K2 launch of a run on ``route`` (a split call's factor on
+        the route kernel_route names), > 0 per dtype."""
+        by_dtype, by_route, by_factor = counts
+        print(f"[{tag}] {label}: K2 launches by dtype {by_dtype}, by route {by_route}"
+              + (f", split factors by route {by_factor}" if route == "split" else ""))
+        factors = {k: 0 for k in by_factor}
+        if route == "split":
+            for d in dtypes:
+                factors[chol_inv.kernel_route(D, getattr(torch, d))] += by_dtype[d]
         if not (all(by_dtype[d] > 0 for d in dtypes)
-                and by_route == {"small": 0, "resident": sum(by_dtype.values()), "general": 0}):
-            raise AssertionError(f"{label}: K2 launches must all take the resident route, "
+                and by_route == {k: sum(by_dtype.values()) if k == route else 0 for k in by_route}
+                and by_factor == factors):
+            raise AssertionError(f"{label}: K2 launches must all take the {route} route, "
                                  f"> 0 in {dtypes}")
 
     _reset_counts()
@@ -1697,24 +1841,23 @@ def _wide_stage_phase(torch, smi) -> dict:
     warm_pt = warm_from_result(cold)
     warm, warm_s = _timed(torch, lambda: solve_batch(data_w, mixed, warm=warm_pt))
     launches = k2_counts()
-    check_resident("mixed cold + warm", launches, ("float32", "float64"))
-    for label, res, secs, probs in (("cold", cold, cold_s, problems),
-                                    ("warm", warm, warm_s, moved)):
-        viol = _check_round(probs, res, f"D = 48 multistage mixed {label}")
+    check_route("mixed cold + warm", launches, ("float32", "float64"))
+    for label, res, secs, shift in (("cold", cold, cold_s, None), ("warm", warm, warm_s, dc)):
+        viol = _check_round(problems(shift=shift), res, f"D = {D} multistage mixed {label}")
         it = res.info.iter.cpu().numpy()
-        print(f"[ms48 {label}] {B}/{B} SOLVED, {B / secs:.1f} solves/s ({secs * 1e3:.1f} ms, "
+        print(f"[{tag} {label}] {B}/{B} SOLVED, {B / secs:.1f} solves/s ({secs * 1e3:.1f} ms, "
               f"host clock), iterations median {np.median(it):.1f} max {it.max()}, worst KKT "
               f"violation {viol:.2e}; {smi}")
 
-    _profile_round(torch, "ms48 warm", lambda: solve_batch(data_w, mixed, warm=warm_pt),
-                   warm_s, smi, ("chol_inv_apply_resident_kernel",))
+    _profile_round(torch, f"{tag} warm", lambda: solve_batch(data_w, mixed, warm=warm_pt),
+                   warm_s, smi, kernels)
 
     _reset_counts()
-    res64, secs = _timed(torch, lambda: solve_batch(index(data, slice(0, MS48_B64)), f64))
+    res64, secs = _timed(torch, lambda: solve_batch(index(data, slice(0, B64)), f64))
     launches64 = k2_counts()
-    check_resident("float64 cold", launches64, ("float64",))
-    viol = _check_round(problems[:MS48_B64], res64, "D = 48 multistage float64")
-    print(f"[ms48 f64] B={MS48_B64} {MS48_B64}/{MS48_B64} SOLVED, {MS48_B64 / secs:.1f} "
+    check_route("float64 cold", launches64, ("float64",))
+    viol = _check_round(problems(B64), res64, f"D = {D} multistage float64")
+    print(f"[{tag} f64] B={B64} {B64}/{B64} SOLVED, {B64 / secs:.1f} "
           f"solves/s ({secs * 1e3:.1f} ms, host clock), iterations max "
           f"{int(res64.info.iter.max())}, worst KKT {viol:.2e}; {smi}")
 
@@ -1722,12 +1865,12 @@ def _wide_stage_phase(torch, smi) -> dict:
     # same trajectory (equal iterations); mixed precision rounds its
     # float32 phase differently on each device
     cpu = to_device(index(data, slice(0, 2)), "cpu")
-    _xcheck("ms48 float64, problems 0-1", solve_batch(cpu, f64), index(res64, slice(0, 2)),
+    _xcheck(f"{tag} float64, problems 0-1", solve_batch(cpu, f64), index(res64, slice(0, 2)),
             mixed=False, tol=XCHECK_F64_TOL, same_iter=True)
-    _xcheck("ms48 mixed, problems 0-1", solve_batch(cpu, mixed), index(cold, slice(0, 2)),
+    _xcheck(f"{tag} mixed, problems 0-1", solve_batch(cpu, mixed), index(cold, slice(0, 2)),
             mixed=True)
-    return {"by_dtype": {k: launches[0][k] + launches64[0][k] for k in launches[0]},
-            "by_route": {k: launches[1][k] + launches64[1][k] for k in launches[1]}}
+    return {key: {k: a[k] + b[k] for k in a}
+            for key, a, b in zip(("by_dtype", "by_route", "by_factor"), launches, launches64)}
 
 
 def main() -> int:
@@ -2095,7 +2238,7 @@ def main() -> int:
     k2_routes = dict(chol_inv.apply_launches_by_route)
     print(f"[ms] K2 launches by route in the mixed, float64 and T = 272 runs: {k2_routes}")
     if k2_routes != {"small": sum(chol_inv.apply_launches_by_dtype.values()), "resident": 0,
-                     "general": 0}:
+                     "split": 0}:
         raise AssertionError(f"multistage K2 launches by route {k2_routes}: all must be small")
 
     # ---- 8. SparseSolver: structure detection, solve, update(c), warm solve
@@ -2147,10 +2290,11 @@ def main() -> int:
                    ("signed_chol_inv_resident_kernel",))
     _profile_round(torch, "ms warm",
                    lambda: solve_batch(data7w, s_ms, warm=warm7_pt), warm7_s, smi,
-                   ("chol_inv_apply_small_kernel", "chol_inv_apply_kernel"))
+                   ("chol_inv_apply_small_kernel",))
     for entry in kernels:
-        if entry["name"].startswith("chol_inv_apply_resident_"):
-            continue  # phase 17 counts the resident route's launches
+        if entry["kernel_route"] in ("resident", "split") and entry["name"].startswith(
+                "chol_inv_apply_"):
+            continue  # phases 17 and 18 count the resident and split routes' launches
         for prefix, counts in (("chol_inv_apply_", k2_launches),
                                ("signed_chol_inv_", k3_launches)):
             if entry["name"].startswith(prefix):
@@ -2163,7 +2307,7 @@ def main() -> int:
     if not (k1["resident"] > 0 and k1["cluster"] == 0):
         raise AssertionError(f"dense differentiable forward: K1 launches by route {k1}")
     k2b = _diff_stage_fleet(torch, smi, data7)
-    if not (k2b["small"] > 0 and k2b["resident"] == k2b["general"] == 0):
+    if not (k2b["small"] > 0 and k2b["resident"] == k2b["split"] == 0):
         raise AssertionError(f"stage backward: K2 launches by route {k2b}; the adjoint factor "
                              f"must launch the small kernel")
     sq = _sqp_and_compaction(torch, smi, problems, moved, data, data_w, cold, warm_pt, settings)
@@ -2189,7 +2333,7 @@ def main() -> int:
     t_new = time.perf_counter()
     capi = _capi_phase(torch, smi, problems[0], moved[0]["c"], prob0, prob0["c"] + dc[0])
     for entry in kernels:
-        if entry["kernel_route"] == "cluster" or entry["name"].startswith(
+        if entry["kernel_route"] in ("cluster", "split") or entry["name"].startswith(
                 "chol_inv_apply_resident_"):
             continue  # phase 15 runs n = 128 (K1's resident route) and D = 8 (K2's small)
         for prefix, kernel, cases in (("chol_inv_apply_", "K2", ("multistage",)),
@@ -2214,13 +2358,27 @@ def main() -> int:
 
     # ---- 17. the D = 48 multistage fleet on K2's resident route
     t_new = time.perf_counter()
-    ms48 = _wide_stage_phase(torch, smi)
+    ms48 = _wide_stage_phase(torch, smi, "ms48", MS48_B, MS48_D, MS48_B64, 4000, 2027,
+                             "resident", K2_MS48, ("chol_inv_apply_resident_kernel",))
     for entry in kernels:
         if entry["kernel_route"] == "resident" and entry["name"].startswith("chol_inv_apply_"):
             entry["launches"] = ms48["by_dtype"][entry["name"].removeprefix(
                 "chol_inv_apply_resident_")]
             entry["ms48_launches_by_route"] = ms48["by_route"]
     print(f"[phase 17] {time.perf_counter() - t_new:.1f} s")
+
+    # ---- 18. the D = 144 multistage fleet on K2's split route
+    t_new = time.perf_counter()
+    ms144 = _wide_stage_phase(torch, smi, "ms144", MS144_B, MS144_D, MS144_B64, 5000, 2028,
+                              "split", K2_MS144,
+                              ("chol_inv_resident_kernel", "chol_inv_apply_product_kernel"))
+    for entry in kernels:
+        if entry["kernel_route"] == "split":
+            entry["launches"] = ms144["by_dtype"][entry["name"].removeprefix(
+                "chol_inv_apply_split_")]
+            entry["ms144_launches_by_route"] = ms144["by_route"]
+            entry["ms144_factors_by_route"] = ms144["by_factor"]
+    print(f"[phase 18] {time.perf_counter() - t_new:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(f"[device] {smi}")

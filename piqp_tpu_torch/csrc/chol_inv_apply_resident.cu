@@ -6,8 +6,8 @@
 // for every n > 32 (and every smaller n whose right-hand block is too wide
 // for the small kernel) whose working set below fits one block's 227 KB of
 // shared memory: with r = 2n + 4, n <= 138 in float32 and n <= 97 in
-// float64.  Wider shapes up to n = 256 keep the general kernel of
-// chol_inv_apply.cu; n <= 32 with a narrow right-hand block takes
+// float64.  Wider shapes up to n = 256 take the split route (K1's kernel,
+// then chol_inv_apply_product.cu); n <= 32 with a narrow right-hand block takes
 // chol_inv_apply_small.cu (ops/chol_inv.py routes by shape).  For each SPD
 // block K (n x n) of an (N, n, n) batch and its right-hand block RHS (n x r)
 // it writes

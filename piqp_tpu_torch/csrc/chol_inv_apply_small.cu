@@ -4,7 +4,7 @@
 //
 // Replaces the TPU kernel piqp_tpu/ops/pallas_chol.py::_chol_inv_apply_kernel
 // for n <= 32 (ops/chol_inv.py routes by shape; 33 <= n <= 256 take the
-// general kernel of chol_inv_apply.cu).  For each SPD block K (n x n) of an
+// resident kernel or the split route).  For each SPD block K (n x n) of an
 // (N, n, n) batch and its right-hand block RHS (n x r) it writes
 //
 //   L = chol(K)        strict upper triangle zero,
@@ -21,7 +21,7 @@
 // Linv and Y once: N (n(n+1)/2 + 2n^2 + 2nr) elements, 24.8 MB in f32
 // (7.4 us) or 49.6 MB in f64 (14.8 us), against about 2n^3/3 + 2n^2 r flops
 // a block, 37 MFLOP in all (0.6 us).  So it is bound by bytes in both
-// types.  The general kernel (one 32-thread block per matrix, two block
+// types.  The old general kernel (one 32-thread block per matrix, two block
 // barriers per column, one thread per right-hand column walking both
 // triangular products) takes 8.7x / 4.8x that bound: it is bound by
 // latency, not by bytes.

@@ -46,10 +46,18 @@ r)`` picks:
     square [K | RHS] in shared memory (``resident_apply_smem_bytes``), for
     every n <= 256 whose square fits one block: with r = 2n + 4, n <= 138
     in float32 and n <= 97 in float64;
-  - ``"general"``, ``csrc/chol_inv_apply.cu``, one block per matrix, for
-    the rest up to n = 256;
+  - ``"split"`` for the rest up to n = 256: two launches, K1's kernel on
+    the route ``kernel_route(n, dtype)`` names (resident, or cluster with
+    ``cluster_size(n, dtype)`` blocks), which writes L and Linv, then the
+    product kernel ``csrc/chol_inv_apply_product.cu``, which reads Linv and
+    RHS and writes Y (one block per matrix and tile of
+    ``product_tile_cols`` right-hand columns, ``product_smem_bytes``); the
+    split call counts once in K2's counters and leaves K1's alone, its
+    factor's route and cluster size in ``apply_factor_launches_by_route``
+    and ``apply_factor_launches_by_cluster``;
   - ``"library"`` above.
-On a CPU tensor it runs ``chol_inv_apply_reference``.
+On a CPU tensor it runs ``chol_inv_apply_reference``; ``inv_apply_reference``
+is the product kernel's plain version.
 """
 
 from __future__ import annotations
@@ -139,6 +147,39 @@ def small_threads(n: int, r: int, itemsize: int) -> int:
     return 0 if small_smem_bytes(n, r, itemsize, t // group_lanes(n)) > SMEM_PER_BLOCK else t
 
 
+# K2's product kernel (the split route's second launch): right-hand columns
+# of a block's tile, Linv columns or rows of a streamed panel, and the
+# tile's rows in shared memory (n rounded up to 32 in float32, 16 in
+# float64), as csrc/chol_inv_apply_product.cu computes them
+def product_tile_cols(itemsize: int) -> int:
+    return 256 // itemsize
+
+
+def product_panel_depth(itemsize: int) -> int:
+    return 64 // itemsize
+
+
+def product_tile_rows(n: int, itemsize: int) -> int:
+    grain = 128 // itemsize
+    return (n + grain - 1) // grain * grain
+
+
+def product_smem_bytes(n: int, itemsize: int) -> int:
+    """Shared memory of a product block: the tile of RHS, then Z (pitch
+    ``product_tile_cols + 4``), and two panel slots of Linv (pitch
+    ``product_panel_depth + 4``)."""
+    rows = product_tile_rows(n, itemsize)
+    return (rows * (product_tile_cols(itemsize) + 4)
+            + 2 * rows * (product_panel_depth(itemsize) + 4)) * itemsize
+
+
+def inv_apply_reference(Linv: torch.Tensor, RHS: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the product kernel: Z = Linv RHS and
+    Y = Linv^T Z, from Linv's lower triangle only."""
+    Lo = torch.tril(Linv)
+    return torch.matmul(Lo.mT, torch.matmul(Lo, RHS))
+
+
 # K2's resident kernel: threads of a block up to n = RESIDENT_APPLY_SMALL_N
 # and above it
 RESIDENT_APPLY_SMALL_N = 64
@@ -159,12 +200,16 @@ def resident_apply_threads(n: int) -> int:
 # version or the library route), per dtype, per route and, on the cluster
 # route, per cluster size (n > RESIDENT_MAX_N needs 2 or 3 blocks);
 # ``apply_launches_by_dtype`` and ``apply_launches_by_route`` the same for
-# ``cholesky_inverse_apply``.
+# ``cholesky_inverse_apply`` (a split call counts once), and
+# ``apply_factor_launches_by_route`` / ``_by_cluster`` the K1 kernel each
+# split call launched.
 launches_by_dtype = {"float32": 0, "float64": 0}
 launches_by_route = {"resident": 0, "cluster": 0}
 launches_by_cluster = {c: 0 for c in range(2, MAX_CLUSTER + 1)}
 apply_launches_by_dtype = {"float32": 0, "float64": 0}
-apply_launches_by_route = {"small": 0, "resident": 0, "general": 0}
+apply_launches_by_route = {"small": 0, "resident": 0, "split": 0}
+apply_factor_launches_by_route = {"resident": 0, "cluster": 0}
+apply_factor_launches_by_cluster = {c: 0 for c in range(2, MAX_CLUSTER + 1)}
 
 
 def kernel_route(n: int, dtype: torch.dtype) -> str:
@@ -216,28 +261,38 @@ def _chol_inv_library(K: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return L, torch.linalg.solve_triangular(L, eye, upper=False)
 
 
-def _launch(K: torch.Tensor, route: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel of ``route`` ("resident", or "cluster" with
-    ``cluster_size(n, dtype)`` blocks per matrix) on a CUDA batch."""
+def _suffix(dtype: torch.dtype) -> str:
+    return "f32" if dtype == torch.float32 else "f64"
+
+
+def _launch_factor(K: torch.Tensor, route: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the K1 kernel of ``route`` ("resident", or "cluster" with
+    ``cluster_size(n, dtype)`` blocks per matrix) on a contiguous CUDA
+    batch; counts nothing."""
     from ._build import library
 
-    if not K.is_contiguous():
-        raise ValueError("cholesky_with_inverse needs a contiguous (B, n, n) tensor")
     B, n, _ = K.shape
     L = torch.empty_like(K)
     Linv = torch.empty_like(K)
-    suffix = "f32" if K.dtype == torch.float32 else "f64"
-    fn = getattr(library(), f"piqp_chol_inv_{route}_{suffix}")
+    fn = getattr(library(), f"piqp_chol_inv_{route}_{_suffix(K.dtype)}")
     cluster = (cluster_size(n, K.dtype),) if route == "cluster" else ()
     with torch.cuda.device(K.device):
         stream = torch.cuda.current_stream(K.device).cuda_stream
         rc = fn(K.data_ptr(), L.data_ptr(), Linv.data_ptr(), B, n, *cluster, stream)
     if rc != 0:
         raise RuntimeError(f"chol_inv {route} kernel launch failed with cudaError_t {rc}")
+    return L, Linv
+
+
+def _launch(K: torch.Tensor, route: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_launch_factor``, counted in K1's launches."""
+    if not K.is_contiguous():
+        raise ValueError("cholesky_with_inverse needs a contiguous (B, n, n) tensor")
+    L, Linv = _launch_factor(K, route)
     launches_by_dtype[str(K.dtype).removeprefix("torch.")] += 1
     launches_by_route[route] += 1
-    if cluster:
-        launches_by_cluster[cluster[0]] += 1
+    if route == "cluster":
+        launches_by_cluster[cluster_size(K.shape[-1], K.dtype)] += 1
     return L, Linv
 
 
@@ -271,49 +326,67 @@ def inv_solve(Linv: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def chol_inv_apply_reference(K: torch.Tensor, RHS: torch.Tensor):
     """Plain PyTorch version of K2: ``chol_inv_reference``'s (L, Linv),
-    then Z = Linv RHS and Y = Linv^T Z."""
+    then ``inv_apply_reference``'s Y = Linv^T (Linv RHS)."""
     L, Linv = chol_inv_reference(K)
-    return L, Linv, torch.matmul(Linv.mT, torch.matmul(Linv, RHS))
+    return L, Linv, inv_apply_reference(Linv, RHS)
 
 
 def apply_kernel_route(n: int, dtype: torch.dtype, r: int) -> str:
     """Where a CUDA batch of n x n blocks of ``dtype`` with r right-hand
-    columns goes: "small", "resident", "general" or "library"."""
+    columns goes: "small", "resident", "split" or "library"."""
     if n <= SMALL_MAX_N and small_threads(n, r, dtype.itemsize):
         return "small"
     if n > MAX_KERNEL_N:
         return "library"
     if resident_apply_smem_bytes(n, r, dtype.itemsize) <= SMEM_PER_BLOCK:
         return "resident"
-    return "general"
+    return "split"
 
 
-# the C entry point of each K2 kernel route
-_APPLY_ENTRY = {"small": "piqp_chol_inv_apply_small",
-                "resident": "piqp_chol_inv_apply_resident",
-                "general": "piqp_chol_inv_apply"}
+def _launch_product(Linv: torch.Tensor, RHS: torch.Tensor) -> torch.Tensor:
+    """Launch the product kernel, Y = Linv^T (Linv RHS), on contiguous CUDA
+    batches; counts nothing."""
+    from ._build import library
+
+    N, n, _ = Linv.shape
+    Y = torch.empty_like(RHS)
+    fn = getattr(library(), f"piqp_chol_inv_apply_product_{_suffix(Linv.dtype)}")
+    with torch.cuda.device(Linv.device):
+        stream = torch.cuda.current_stream(Linv.device).cuda_stream
+        rc = fn(Linv.data_ptr(), RHS.data_ptr(), Y.data_ptr(), N, n, RHS.shape[-1], stream)
+    if rc != 0:
+        raise RuntimeError(f"chol_inv_apply product kernel launch failed with cudaError_t {rc}")
+    return Y
 
 
 def _launch_apply(K: torch.Tensor, RHS: torch.Tensor, route: str):
-    """Launch the K2 kernel of ``route`` ("small", "resident" or
-    "general") on a CUDA batch."""
+    """Launch the K2 kernel of ``route`` ("small" or "resident"), or the
+    split route's two kernels, on a CUDA batch."""
     from ._build import library
 
     if not (K.is_contiguous() and RHS.is_contiguous()):
         raise ValueError("cholesky_inverse_apply needs contiguous tensors")
     N, n, _ = K.shape
     r = RHS.shape[-1]
-    L = torch.empty_like(K)
-    Linv = torch.empty_like(K)
-    Y = torch.empty_like(RHS)
-    suffix = "f32" if K.dtype == torch.float32 else "f64"
-    fn = getattr(library(), f"{_APPLY_ENTRY[route]}_{suffix}")
-    with torch.cuda.device(K.device):
-        stream = torch.cuda.current_stream(K.device).cuda_stream
-        rc = fn(K.data_ptr(), RHS.data_ptr(), L.data_ptr(), Linv.data_ptr(),
-                Y.data_ptr(), N, n, r, stream)
-    if rc != 0:
-        raise RuntimeError(f"chol_inv_apply {route} kernel launch failed with cudaError_t {rc}")
+    if route == "split":
+        factor = kernel_route(n, K.dtype)
+        L, Linv = _launch_factor(K, factor)
+        Y = _launch_product(Linv, RHS)
+        apply_factor_launches_by_route[factor] += 1
+        if factor == "cluster":
+            apply_factor_launches_by_cluster[cluster_size(n, K.dtype)] += 1
+    else:
+        L = torch.empty_like(K)
+        Linv = torch.empty_like(K)
+        Y = torch.empty_like(RHS)
+        fn = getattr(library(), f"piqp_chol_inv_apply_{route}_{_suffix(K.dtype)}")
+        with torch.cuda.device(K.device):
+            stream = torch.cuda.current_stream(K.device).cuda_stream
+            rc = fn(K.data_ptr(), RHS.data_ptr(), L.data_ptr(), Linv.data_ptr(),
+                    Y.data_ptr(), N, n, r, stream)
+        if rc != 0:
+            raise RuntimeError(f"chol_inv_apply {route} kernel launch failed with "
+                               f"cudaError_t {rc}")
     apply_launches_by_dtype[str(K.dtype).removeprefix("torch.")] += 1
     apply_launches_by_route[route] += 1
     return L, Linv, Y
@@ -323,8 +396,9 @@ def cholesky_inverse_apply(K: torch.Tensor, RHS: torch.Tensor):
     """(L, Linv, Y = K^-1 RHS) for an (N, n, n) batch of SPD blocks and an
     (N, n, r) batch of right-hand blocks, float32 or float64.
 
-    CUDA tensor: the small, resident or general kernel, or the library
-    route with the two products, as ``apply_kernel_route`` says.  CPU
+    CUDA tensor: the small or resident kernel, the split route's two
+    kernels, or the library route with the two products, as
+    ``apply_kernel_route`` says.  CPU
     tensor: the plain version.  Any other device raises."""
     _check(K)
     if RHS.dtype != K.dtype or RHS.ndim != 3 or RHS.shape[:2] != K.shape[:2]:

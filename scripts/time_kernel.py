@@ -12,11 +12,14 @@ same checkout with every sign +1 (held to K1's plain version); K2 is
 ``ops/chol_inv.cholesky_inverse_apply`` at the multistage fleet's first
 cyclic-reduction level, N = 12,800, n = 8, r = 20, at N = 5,376, n = 23,
 r = 50 (256 problems of T = 43, D = 23, Da = 4), both on the small route,
-and at N = 2,560, n = 48, r = 100 (the D = 48 fleet's first level) and
-n = 64, r = 132, which take the resident route (``apply_kernel_route``
-names each shape's route; an older checkout sends them to the general
-kernel, so an A/B across checkouts times the redesigned route against
-it), with the ptxas lines of both the small and the resident kernel; K3 is
+at N = 2,560, n = 48, r = 100 (the D = 48 fleet's first level) and
+n = 64, r = 132, which take the resident route, and at N = 1,280,
+n = 144, r = 292 (the D = 144 fleet's first level), which takes the split
+route: K1's factor kernel, then the product kernel (``apply_kernel_route``
+names each shape's route; an older checkout sends the last to the general
+kernel, csrc/chol_inv_apply.cu, so an A/B across checkouts times the
+split route against it), with the ptxas lines of the small, the resident
+and the product kernel; K3 is
 ``ops/signed_chol_inv.signed_cholesky_with_inverse`` at the dense_ldlt
 fleet's B = 256, n = 256 and its float64 batch, B = 64.  Give two versions
 as parent, change, change, parent to compare them within one run.  For each
@@ -28,8 +31,8 @@ version with chip_smoke.py's tolerances, then times the wrapper: K1 and K3
 with chip_smoke.py's looped CUDA events (``ms``); K2, whose launch is
 shorter than the wrapper's host work, by its device time, chip_smoke.py's
 CUDA graph of launches, with the inputs warm in L2 (``ms``) and rotated
-through 8 sets larger than the L2 (``ms_cold_l2``), and looped
-(``looped_ms``).  It prints one JSON line per ROOT and exits nonzero if
+through 8 sets larger than the L2 (``ms_cold_l2``; not at a shape whose
+one set already exceeds the L2), and looped (``looped_ms``).  It prints one JSON line per ROOT and exits nonzero if
 any ROOT fails or no card is there.
 """
 
@@ -57,15 +60,18 @@ KERNELS = {
                instance=r"\d(?:chol_inv_resident|chol_inv|chol_inv_cluster)_kernel"),
     "K2": dict(module="chol_inv", wrapper="cholesky_inverse_apply",
                reference="chol_inv_apply_reference", batch="_apply_batch",
-               shapes=[(12800, 8, 20), (5376, 23, 50), (2560, 48, 100), (2560, 64, 132)],
-               instance=r"\dchol_inv_apply_(?:small|resident)_kernel"),
+               shapes=[(12800, 8, 20), (5376, 23, 50), (2560, 48, 100), (2560, 64, 132),
+                       (1280, 144, 292)],
+               instance=r"\dchol_inv_apply_(?:small|resident|product)_kernel"),
     "K3": dict(module="signed_chol_inv", wrapper="signed_cholesky_with_inverse",
                reference="signed_chol_inv_reference", batch="_quasidef_batch",
                shapes=[(256, 256), (64, 256)],
                instance=r"\dsigned_chol_inv_resident_kernel"),
 }
-# rotated input sets of K2's cold-L2 timing
+# rotated input sets of K2's cold-L2 timing, taken where one set fits the
+# card's 50 MB L2
 COLD_SETS = 8
+L2_BYTES = 50e6
 
 
 def _instances(log: str, instance: str) -> list:
@@ -143,16 +149,18 @@ def _child(kernel: str, root: Path) -> dict:
             key = f"{name} " + " ".join(f"{a}={v}" for a, v in zip(labels, shape))
             entry = dict(err_L=errs[0], err_Linv=errs[1])
             if kernel == "K2":
-                sets = [batch(torch, *shape, dtype, seed=100 + i) for i in range(COLD_SETS)]
                 entry.update(
                     err_Y=errs[2],
                     # a checkout before the small kernel has the general one alone
                     route=(mod.apply_kernel_route(shape[1], dtype, shape[2])
                            if hasattr(mod, "apply_kernel_route") else "general"),
                     ms=smoke._graph_ms(torch, [lambda: wrapper(*args)]),
-                    ms_cold_l2=smoke._graph_ms(torch, [lambda a=a: wrapper(*a) for a in sets]),
                     looped_ms=smoke._time_ms(torch, lambda: wrapper(*args)))
-                del sets
+                if sum(a.numel() * a.element_size() for a in args) < L2_BYTES:
+                    sets = [batch(torch, *shape, dtype, seed=100 + i) for i in range(COLD_SETS)]
+                    entry["ms_cold_l2"] = smoke._graph_ms(
+                        torch, [lambda a=a: wrapper(*a) for a in sets])
+                    del sets
             else:
                 entry["ms"] = smoke._time_ms(torch, lambda: wrapper(*args))
             if kernel == "K1":

@@ -17,6 +17,7 @@ import torch
 import piqp_tpu
 from piqp_tpu import batch as jbatch
 from piqp_tpu.ops.pallas_chol import (
+    _chol_inv_apply_fallback,
     _pallas_chol_inv_apply_batched,
     _pallas_chol_inv_batched,
     _pallas_signed_chol_inv_batched,
@@ -300,16 +301,28 @@ def test_apply_wrapper_rejects_bad_input(K, RHS):
         (64, 132, torch.float64, "resident"),
         # the resident square's limit at r = 2n + 4, each side
         (138, 280, torch.float32, "resident"),
-        (139, 282, torch.float32, "general"),
+        (139, 282, torch.float32, "split"),
         (97, 198, torch.float64, "resident"),
-        (98, 200, torch.float64, "general"),
-        (256, 516, torch.float32, "general"),
-        (256, 516, torch.float64, "general"),
+        (98, 200, torch.float64, "split"),
+        (256, 516, torch.float32, "split"),
+        (256, 516, torch.float64, "split"),
         (257, 518, torch.float32, "library"),
         (257, 518, torch.float64, "library"),
         # one warp's right-hand blocks too wide for shared memory
-        (32, 1800, torch.float32, "general"),
-        (32, 900, torch.float64, "general"),
+        (32, 1800, torch.float32, "split"),
+        (32, 900, torch.float64, "split"),
+        # the D = 144 fleet's levels, and the limit at r = 4n + 4 (the
+        # chunked and sharded interiors' width), each side
+        (144, 292, torch.float32, "split"),
+        (144, 292, torch.float64, "split"),
+        (75, 304, torch.float32, "resident"),
+        (75, 304, torch.float64, "resident"),
+        (76, 308, torch.float32, "resident"),
+        (76, 308, torch.float64, "split"),
+        (107, 432, torch.float32, "resident"),
+        (107, 432, torch.float64, "split"),
+        (108, 436, torch.float32, "split"),
+        (108, 436, torch.float64, "split"),
     ],
 )
 def test_apply_kernel_route(n, r, dtype, route):
@@ -343,6 +356,137 @@ def test_resident_apply_layout_matches_the_kernel_source(dtype):
             route = chol_inv.apply_kernel_route(n, dtype, r)
             # the launcher refuses a square above the limit
             assert (route == "resident") == (got <= limit and route != "small")
+
+
+@pytest.mark.parametrize(
+    "n,dtype,factor,cluster",
+    [
+        (144, torch.float32, "resident", None),
+        (144, torch.float64, "resident", None),
+        (170, torch.float32, "resident", None),
+        (170, torch.float64, "cluster", 2),
+        (226, torch.float32, "resident", None),
+        (226, torch.float64, "cluster", 3),
+        (241, torch.float32, "cluster", 2),
+        (241, torch.float64, "cluster", 3),
+        (256, torch.float32, "cluster", 2),
+        (256, torch.float64, "cluster", 3),
+    ],
+)
+def test_split_route_factors_on_k1s_route(monkeypatch, n, dtype, factor, cluster):
+    """A split call launches K1's kernel on the route and cluster size
+    kernel_route and cluster_size name, then the product kernel, and counts
+    once in K2's counters (its factor in the split-factor counters), never in
+    K1's.  The two launches are replaced by their plain versions, so the
+    wrapper's own logic runs on the CPU."""
+    assert chol_inv.apply_kernel_route(n, dtype, 2 * n + 4) == "split"
+    assert chol_inv.kernel_route(n, dtype) == factor
+    assert cluster is None or chol_inv.cluster_size(n, dtype) == cluster
+    launched = []
+    monkeypatch.setattr(chol_inv, "_launch_factor",
+                        lambda K, route: launched.append(route) or chol_inv.chol_inv_reference(K))
+    monkeypatch.setattr(chol_inv, "_launch_product",
+                        lambda Linv, RHS: launched.append("product")
+                        or chol_inv.inv_apply_reference(Linv, RHS))
+    counts = (chol_inv.apply_launches_by_dtype, chol_inv.apply_launches_by_route,
+              chol_inv.apply_factor_launches_by_route, chol_inv.apply_factor_launches_by_cluster,
+              chol_inv.launches_by_dtype, chol_inv.launches_by_route,
+              chol_inv.launches_by_cluster)
+    before = [dict(c) for c in counts]
+    try:
+        K = torch.as_tensor(_spd_batch(1, n, seed=n), dtype=dtype)
+        RHS = torch.as_tensor(np.random.default_rng(n).uniform(-1, 1, (1, n, 4)), dtype=dtype)
+        got = chol_inv._launch_apply(K, RHS, "split")
+        grown = [{k: c[k] - b[k] for k in b} for c, b in zip(counts, before)]
+    finally:
+        for c, b in zip(counts, before):
+            c.update(b)
+    assert launched == [factor, "product"]
+    name = str(dtype).removeprefix("torch.")
+    assert grown[0] == {k: int(k == name) for k in grown[0]}
+    assert grown[1] == {k: int(k == "split") for k in grown[1]}
+    assert grown[2] == {k: int(k == factor) for k in grown[2]}
+    assert grown[3] == {k: int(k == cluster) for k in grown[3]}
+    assert all(not any(g.values()) for g in grown[4:])  # K1's counters stay K1's
+    for g, w in zip(got, chol_inv.chol_inv_apply_reference(K, RHS)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_split_plain_versions_match_jax_fallback():
+    """The split route's plain versions against the JAX package's XLA
+    fallback (``_chol_inv_apply_fallback``, on the CPU in float64) at the
+    D = 144 fleet's n = 144, R = 292: K2's plain version on K, and the
+    product's plain version on the fallback's own Linv.  Both sum in
+    another order than XLA, so they are held to 1e-12 relative to each
+    output's largest entry."""
+    N, n, R = 2, 144, 292
+    K = _spd_batch(N, n, seed=12)
+    RHS = np.random.default_rng(12).standard_normal((N, n, R))
+    want = [np.array(a) for a in jax.vmap(_chol_inv_apply_fallback)(
+        jnp.asarray(K), jnp.asarray(RHS))]
+    got = [a.numpy() for a in chol_inv.chol_inv_apply_reference(
+        torch.as_tensor(K), torch.as_tensor(RHS))]
+    for g, w, what in zip(got, want, ("L", "Linv", "Y")):
+        np.testing.assert_allclose(g, w, rtol=1e-12, atol=1e-12 * np.abs(w).max(), err_msg=what)
+    Y = chol_inv.inv_apply_reference(torch.as_tensor(want[1]), torch.as_tensor(RHS)).numpy()
+    np.testing.assert_allclose(Y, want[2], rtol=1e-12, atol=1e-12 * np.abs(want[2]).max())
+
+
+def test_product_reads_the_lower_triangle_only():
+    """What lies above Linv's diagonal does not reach the product's plain
+    version, as the kernel zero-fills it."""
+    K = torch.as_tensor(_spd_batch(2, 20, seed=3))
+    _, Linv = chol_inv.chol_inv_reference(K)
+    RHS = torch.as_tensor(np.random.default_rng(3).standard_normal((2, 20, 7)))
+    poisoned = Linv + torch.triu(torch.full_like(Linv, float("nan")), 1)
+    torch.testing.assert_close(chol_inv.inv_apply_reference(poisoned, RHS),
+                               chol_inv.inv_apply_reference(Linv, RHS), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_product_layout_matches_the_kernel_source(dtype):
+    """The product kernel's tile width, panel depth, tile rows and shared-
+    memory formula are the ones its Python mirror states, with its largest
+    n and per-block limit; every n up to 256 fits a block."""
+    src = (Path(chol_inv.__file__).parents[1] / "csrc" / "chol_inv_apply_product.cu").read_text()
+    max_n = int(re.search(r"constexpr int kMaxN = (\d+);", src).group(1))
+    limit = int(re.search(r"constexpr int kSmemPerBlock = (\d+);", src).group(1))
+
+    def body(fn):
+        return re.search(rf"__host__ __device__ constexpr int {fn}\([^)]*\) \{{\s*"
+                         rf"return ([^;]+);\s*\}}", src).group(1).replace("/", "//")
+
+    assert (max_n, limit) == (chol_inv.MAX_KERNEL_N, chol_inv.SMEM_PER_BLOCK)
+    size = dtype.itemsize
+    names = {"tile_cols": chol_inv.product_tile_cols,
+             "panel_depth": chol_inv.product_panel_depth,
+             "tile_rows": chol_inv.product_tile_rows,
+             "group_rows": lambda elem: eval(body("group_rows"), {}, {"elem": elem})}
+    assert eval(body("tile_cols"), {}, {"elem": size}) == chol_inv.product_tile_cols(size)
+    assert eval(body("panel_depth"), {}, {"elem": size}) == chol_inv.product_panel_depth(size)
+    for n in range(1, max_n + 1):
+        assert eval(body("tile_rows"), names, {"n": n, "elem": size}) == \
+            chol_inv.product_tile_rows(n, size)
+        smem = eval(body("product_smem_bytes"), names, {"n": n, "elem": size})
+        assert smem == chol_inv.product_smem_bytes(n, size) <= limit
+
+
+@pytest.mark.parametrize(
+    "n,dtype,tile,smem,per_sm",
+    [
+        (144, torch.float32, 64, 69_120, 3),
+        (144, torch.float64, 32, 69_120, 3),
+        (256, torch.float32, 64, 110_592, 2),
+        (256, torch.float64, 32, 122_880, 1),
+    ],
+)
+def test_product_placement_at_the_stated_shapes(n, dtype, tile, smem, per_sm):
+    """The placements the product kernel's note states: right-hand columns
+    a block, shared memory a block and blocks an SM by shared memory
+    (228 KB, 1 KB reserved per block)."""
+    got = chol_inv.product_smem_bytes(n, dtype.itemsize)
+    assert (chol_inv.product_tile_cols(dtype.itemsize), got, 233_472 // (got + 1024)) == (
+        tile, smem, per_sm)
 
 
 @pytest.mark.parametrize(
@@ -502,11 +646,12 @@ def test_signed_wrapper_rejects_bad_input(K, s):
 
 def test_no_k2_k3_launches_on_cpu():
     counts = (chol_inv.apply_launches_by_dtype, chol_inv.apply_launches_by_route,
+              chol_inv.apply_factor_launches_by_route, chol_inv.apply_factor_launches_by_cluster,
               signed_chol_inv.launches_by_dtype, signed_chol_inv.launches_by_route,
               signed_chol_inv.launches_by_cluster)
     before = tuple(dict(c) for c in counts)
     for dt in (torch.float32, torch.float64):
-        # K2 on its small, resident and general routes; K3 on a one-block
+        # K2 on its small, resident and split routes; K3 on a one-block
         # and a clustered resident shape
         for n in (6, 48, 240):
             K = torch.as_tensor(_spd_batch(2, n, 0), dtype=dt)
