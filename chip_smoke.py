@@ -116,7 +116,21 @@ Phases:
      check; the phase-7 fleet at 4 chunks, mixed cold and one warm round,
      against phase 7; ``solve_batch(sharding=group)`` on phase 3's fleet,
      identical to phase 3's cold round; K2 launches by route (all small,
-     more than 0 at 4 chunks) and the sharded-call counter.
+     more than 0 at 4 chunks) and the sharded-call counter.  Then the
+     rank-local layout on 1, 2 and 4 ranks of the one card: config 4 at 4
+     chunks, float64 and mixed, cold and warm, and phase 17's D = 48
+     fleet (128 problems, T = 41 padded to 44, chain interiors) float64
+     cold, each handed over on the host and placed by
+     ``shard_horizon(..., device="cuda")``, on the NCCL rank (the
+     reference, checked on the host) and on 2 and 4 gloo ranks spawned on
+     the card (NCCL refuses two ranks of one device): every rank's x
+     identical, float64 iterations equal and x within XCHECK_F64_TOL of
+     one rank's, mixed SOLVED, optimal on the host and within
+     XCHECK_MIXED_TOL, each rank's stage-block bytes exactly its share,
+     K2's small kernel in every config-4 run at phase 2b's shapes, the
+     fleet's peak memory falling from 1 to 2 to 4 ranks; each rank's
+     peak memory and host-clock time printed (the ranks share one card:
+     no speed-up across GPUs is shown or claimed).
  15. the C interface (piqp_tpu_torch/capi/): build_capi.sh builds the
      library and its C driver; the driver's file-driven mode on CUDA solves
      phase 3's problem 0 (n = 128) through K1 in float64 (the library's
@@ -213,8 +227,12 @@ K2_D23 = (256 * (43 // 2), 23, 2 * 23 + 4)
 # Ea'] of R = 2D + W = 4D + Da columns: K2 launches at N = 4 chunks x
 # those blocks for config 4 and MS_B times that for the fleet
 CFG4_SEED = 4
-K2_HORIZON = sorted({(b * 4 * h, MS_D, 4 * MS_D + MS_DA)
-                     for b in (1, MS_B) for h in (12, 6, 3, 1)}
+# phase 14's ranks on the one card: config 4 at 4 chunks over 1, 2 and 4
+# ranks (4, 2 and 1 chunks a rank), so a rank's K2 launches take N = 4, 2
+# and 1 x the level's blocks; the phase-7 fleet at 4 chunks on one rank
+HZ_CHUNKS, HZ_WORLDS = 4, (2, 4)
+K2_HORIZON = sorted({(c * h, MS_D, 4 * MS_D + MS_DA) for c in (1, 2, 4) for h in (12, 6, 3, 1)}
+                    | {(MS_B * HZ_CHUNKS * h, MS_D, 4 * MS_D + MS_DA) for h in (12, 6, 3, 1)}
                     | {(K2_RAGGED_N, MS_D, 4 * MS_D + MS_DA)})
 # phase 17: the D = 48 multistage fleet, 128 problems at the chain-of-masses
 # SQP fixture's horizon (T = 41) with a stage twice as wide; cyclic
@@ -1195,16 +1213,279 @@ def _timings_and_host_route(torch, smi, problems, moved):
         raise AssertionError("the host route disagrees with the card's dense solve")
 
 
-def _unpad_stage(res, T, T_pad, D, Da, ra, rg) -> dict:
-    """The float64 host arrays of a (B = 1) result in a padded stage
-    layout, cut back to the unpadded problem's coordinates and rows."""
+def _unpad_stage(res, T, T_pad, D, Da, ra, rg, i=0) -> dict:
+    """The float64 host arrays of problem i of a result in a padded stage
+    layout (``res``'s fields, or a dict of them on the host), cut back to
+    the unpadded problem's coordinates and rows."""
     def xlike(v):
         return np.concatenate([v[:T * D], v[T_pad * D:]])
 
-    h = {k: getattr(res, k)[0].double().cpu().numpy()
-         for k in ("x", "y", "z_l", "z_u", "z_bl", "z_bu")}
+    h = {}
+    for k in ("x", "y", "z_l", "z_u", "z_bl", "z_bu"):
+        v = (res[k] if isinstance(res, dict) else getattr(res, k))[i]
+        h[k] = v.double().cpu().numpy() if hasattr(v, "cpu") else np.asarray(v, np.float64)
     return dict(x=xlike(h["x"]), y=h["y"][:T * ra], z_l=h["z_l"][:T * rg],
                 z_u=h["z_u"][:T * rg], z_bl=xlike(h["z_bl"]), z_bu=xlike(h["z_bu"]))
+
+
+# phase 14's multi-rank part: the ranks meet through a FileStore on gloo
+# (NCCL refuses two ranks of one communicator on one device)
+HZ_RANK_TIMEOUT_S = 600
+HZ_FLEET = dict(B=MS48_B, T=MS48_T, D=MS48_D, Da=MS48_DA, ra=4, rg=4, seed0=4000)
+
+
+def _cfg4_problems() -> dict:
+    """Config 4 and its c *= 1.01 warm re-solve as ``_optimality``'s host
+    problems."""
+    from piqp_tpu_torch import multistage
+
+    kw = multistage.random_multistage_arrays(seed=CFG4_SEED, T=MS_T, D=MS_D, Da=MS_DA,
+                                             ra=MS_RA, rg=MS_RG)
+    return {"cold": _stage_problem(multistage, kw),
+            "warm": _stage_problem(multistage, kw, kw["c"] * 1.01)}
+
+
+def _hz_runs(torch, group) -> dict:
+    """The horizon-sharded runs of one rank of ``group``, at HZ_CHUNKS
+    chunks, each handed over on the CPU and placed by ``shard_horizon(...,
+    device="cuda")``: config 4 float64 and mixed, cold and a warm re-solve
+    after c *= 1.01, then the phase-17 fleet (128 problems, T = 41 padded
+    to 44, D = 48) float64 cold.  Per run: the result on the host, status,
+    iterations, seconds (host clock), the stage-block bytes this rank
+    holds (its nine block fields, and their float32 copy ``data32`` under
+    mixed precision), the peak device memory above the allocation at its
+    start (``max_memory_allocated`` after a reset), the collectives by
+    kind and K2's launches by dtype and route, and the K2 shapes
+    launched."""
+    import dataclasses
+
+    from piqp_tpu_torch import Settings, kkt, multistage
+    from piqp_tpu_torch.ops import chol_inv
+    from piqp_tpu_torch.parallel import comm, shard_horizon, solve_horizon_sharded
+
+    shapes, kernel = set(), multistage.cholesky_inverse_apply
+
+    def recorded(K, RHS):
+        if K.is_cuda:
+            shapes.add((str(K.dtype).removeprefix("torch."), K.shape[0], K.shape[-1],
+                        RHS.shape[-1]))
+        return kernel(K, RHS)
+
+    runs = {}
+
+    def run(label, data, settings, warm=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        counts = (dict(comm.collective_calls), dict(chol_inv.apply_launches_by_dtype),
+                  dict(chol_inv.apply_launches_by_route))
+        t = time.perf_counter()
+        sdata = shard_horizon(data, group, HZ_CHUNKS, device="cuda")
+        res = solve_horizon_sharded(sdata, settings=settings, warm=warm)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        held = [sdata] + ([kkt.precompute(sdata, True)["data32"]]
+                          if settings.mixed_precision else [])
+        runs[label] = dict(
+            {k: getattr(res, k).cpu().numpy() for k in ("x", "y", "z_l", "z_u", "z_bl", "z_bu")},
+            status=res.info.status.cpu().numpy(), iter=res.info.iter.cpu().numpy(),
+            seconds=secs, peak=torch.cuda.max_memory_allocated() - base,
+            block_bytes=sum(getattr(d, k).nbytes for d in held for k in multistage.STAGE_BLOCKS),
+            stages=sdata.stages, horizon=sdata.T,
+            collectives={k: comm.collective_calls[k] - counts[0][k] for k in counts[0]},
+            k2_dtype={k: chol_inv.apply_launches_by_dtype[k] - counts[1][k] for k in counts[1]},
+            k2_route={k: chol_inv.apply_launches_by_route[k] - counts[2][k] for k in counts[2]})
+        return res
+
+    dims = dict(T=MS_T, D=MS_D, Da=MS_DA, ra=MS_RA, rg=MS_RG)
+    base = multistage.random_multistage_qp(seed=CFG4_SEED, **dims, device="cpu")
+    moved = dataclasses.replace(base, c=base.c * 1.01)
+    multistage.cholesky_inverse_apply = recorded
+    try:
+        for label, st in (("float64", Settings()), ("mixed", Settings(mixed_precision=True))):
+            cold = run(f"config 4 {label} cold", base, st)
+            run(f"config 4 {label} warm", moved, st, warm=cold)
+    finally:
+        multistage.cholesky_inverse_apply = kernel
+    f = HZ_FLEET
+    fleet = multistage.random_multistage_batch(
+        [f["seed0"] + i for i in range(f["B"])], T=f["T"], D=f["D"], Da=f["Da"], ra=f["ra"],
+        rg=f["rg"], device="cpu")
+    run("fleet float64 cold", fleet, Settings())
+    runs["k2_shapes"] = sorted(shapes)
+    return runs
+
+
+def _hz_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One spawned rank of phase 14's multi-rank part: the device first,
+    then a gloo group of ``world`` ranks met through the FileStore
+    ``store``, ``_hz_runs``, and its runs pickled to out/rank<r>.pkl."""
+    import os
+    import pickle
+
+    import torch
+
+    torch.cuda.set_device(0)
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        runs = _hz_runs(torch, dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(runs, fh)
+
+
+def _hz_spawn(world: int) -> list:
+    """``_hz_rank`` on ``world`` spawned ranks sharing the one card; each
+    rank's runs, in rank order.  Raises if a rank fails or the ranks
+    outlast HZ_RANK_TIMEOUT_S (the ranks are killed)."""
+    import os
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(_hz_rank, args=(world, os.path.join(tmp, "store"), tmp),
+                                 nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + HZ_RANK_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+                if time.monotonic() >= deadline:
+                    raise AssertionError(f"{world} ranks did not finish in "
+                                         f"{HZ_RANK_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as fh:
+                ranks.append(pickle.load(fh))
+    return ranks
+
+
+def _hz_check_reference(ref: dict, smi) -> None:
+    """The one-rank runs of ``_hz_runs`` on the NCCL group: every problem
+    SOLVED and optimal on the host, K2's small kernel launched in every
+    config-4 run."""
+    from piqp_tpu_torch import multistage
+
+    probs = _cfg4_problems()
+    dims = dict(T=MS_T, D=MS_D, Da=MS_DA, ra=MS_RA, rg=MS_RG)
+    f = HZ_FLEET
+    fdims = dict(T=f["T"], D=f["D"], Da=f["Da"], ra=f["ra"], rg=f["rg"])
+    fleet = [_stage_problem_sparse(multistage.random_multistage_arrays(seed=f["seed0"] + i,
+                                                                       **fdims))
+             for i in range(f["B"])]
+    for label, run in ref.items():
+        if label == "k2_shapes":
+            continue
+        if label.startswith("config 4"):
+            cases, d = [probs[label.split()[-1]]], dims
+            if run["k2_route"]["small"] == 0:
+                raise AssertionError(f"[horizon ranks] one rank, {label}: no small K2 launch")
+        else:
+            cases, d = fleet, fdims
+        worst = max(_optimality(prob, *(
+            _unpad_stage(run, d["T"], run["horizon"], d["D"], d["Da"], d["ra"], d["rg"], i)[k]
+            for k in ("x", "y", "z_l", "z_u", "z_bl", "z_bu"))) for i, prob in enumerate(cases))
+        print(f"[horizon ranks] world=1 (NCCL) {label}: {len(cases)}/{len(cases)} SOLVED "
+              f"{bool((run['status'] == 1).all())}, worst KKT {worst:.2e}")
+        if not ((run["status"] == 1).all() and worst <= OPT_TOL):
+            raise AssertionError(f"[horizon ranks] one rank, {label}: status or KKT")
+
+
+def _hz_ranks_phase(torch, smi, ref: dict) -> dict:
+    """Phase 14's multi-rank part: ``_hz_runs`` on 2 and 4 gloo ranks
+    spawned on the one card, against the one-rank NCCL runs ``ref``.
+    Every rank's x identical to the others'; float64 status and
+    iterations equal to one rank's and x within XCHECK_F64_TOL of it; the
+    mixed runs SOLVED, optimal on the host and within XCHECK_MIXED_TOL of
+    one rank's mixed x; each rank's stage-block bytes exactly its stages'
+    share of one rank's; K2's small kernel launched in every rank's config-4
+    runs, at shapes phase 2b held against the plain version; the fleet's
+    peak memory falling from 1 to 2 to 4 ranks.  Returns each world's K2
+    launches by dtype, per rank."""
+    probs = _cfg4_problems()
+    checked = {(name, *shape) for name in ("float32", "float64") for shape in K2_SHAPES}
+    labels = [k for k in ref if k != "k2_shapes"]
+    peaks = {1: [ref["fleet float64 cold"]["peak"]]}
+    k2_by_world = {}
+    for label in labels:
+        run = ref[label]
+        print(f"[horizon ranks] world=1 {label}: stages {run['stages']} of {run['horizon']}, "
+              f"stage blocks {run['block_bytes']} B, peak {run['peak']} B above the start, "
+              f"{run['seconds'] * 1e3:.1f} ms (host clock), iterations "
+              f"{int(np.max(run['iter']))} max, collectives {run['collectives']}, K2 by route "
+              f"{run['k2_route']}; {smi}")
+    for world in HZ_WORLDS:
+        t0 = time.perf_counter()
+        ranks = _hz_spawn(world)
+        spawn_s = time.perf_counter() - t0
+        k2_by_world[world] = []
+        for label in labels:
+            want = ref[label]
+            mixed = "mixed" in label
+            for r, got in enumerate(ranks):
+                run = got[label]
+                what = f"world={world} rank {r} {label}"
+                per = want["horizon"] // world
+                same = np.array_equal(run["x"], ranks[0][label]["x"])
+                dx = float(np.abs(run["x"] - want["x"]).max())
+                tol = XCHECK_MIXED_TOL if mixed else XCHECK_F64_TOL
+                share = run["block_bytes"] * world == want["block_bytes"]
+                ok = (same and dx <= tol and share and (run["status"] == 1).all()
+                      and tuple(run["stages"]) == (r * per, (r + 1) * per)
+                      and (mixed or np.array_equal(run["iter"], want["iter"])))
+                viol = None
+                if mixed:
+                    host = _unpad_stage(run, MS_T, run["horizon"], MS_D, MS_DA, MS_RA, MS_RG)
+                    viol = _optimality(probs[label.split()[-1]], *(host[k] for k in (
+                        "x", "y", "z_l", "z_u", "z_bl", "z_bu")))
+                    ok = ok and viol <= OPT_TOL
+                print(f"[horizon ranks] {what}: stages {tuple(run['stages'])} of "
+                      f"{run['horizon']}, stage blocks {run['block_bytes']} B (one rank "
+                      f"{want['block_bytes']} B, share exact {share}), peak {run['peak']} B "
+                      f"above the start, {run['seconds'] * 1e3:.1f} ms (host clock), "
+                      f"iterations {int(np.max(run['iter']))} max (one rank "
+                      f"{int(np.max(want['iter']))}), x identical to rank 0 {same}, |x - "
+                      f"x_one_rank| {dx:.2e} (limit {tol:.0e})"
+                      + (f", KKT {viol:.2e}" if viol is not None else "")
+                      + f", collectives {run['collectives']}, K2 by route {run['k2_route']}; "
+                      f"{smi}")
+                if not ok:
+                    raise AssertionError(f"[horizon ranks] {what} disagrees with one rank")
+        for r, got in enumerate(ranks):
+            cfg4 = [got[k] for k in labels if k.startswith("config 4")]
+            small = [run["k2_route"]["small"] for run in cfg4]
+            other = sum(run["k2_route"][k] for run in cfg4 for k in ("resident", "split"))
+            shapes = set(got["k2_shapes"])
+            print(f"[horizon ranks] world={world} rank {r}: K2 small launches in each config-4 "
+                  f"run {small}, resident + split {other}; K2 shapes (dtype, N, n, R) "
+                  f"{sorted(shapes)}, all held against the plain version in phase 2b "
+                  f"{shapes <= checked}")
+            if not (min(small) > 0 and other == 0 and shapes <= checked):
+                raise AssertionError(f"[horizon ranks] world={world} rank {r}: K2 launches "
+                                     f"{small} small, {other} other, shapes unchecked "
+                                     f"{sorted(shapes - checked)}")
+            k2_by_world[world].append({k: sum(run["k2_dtype"][k] for run in cfg4)
+                                       for k in ("float32", "float64")})
+        peaks[world] = [got["fleet float64 cold"]["peak"] for got in ranks]
+        print(f"[horizon ranks] world={world}: {world} spawned gloo ranks on one card in "
+              f"{spawn_s:.1f} s (start-up included), fleet peak per rank {peaks[world]} B; "
+              f"ranks share one card, so no speed-up across GPUs is shown or claimed")
+    falls = max(peaks[2]) < peaks[1][0] and max(peaks[4]) < min(peaks[2])
+    print(f"[horizon ranks] fleet peak memory per rank (B above the start), 1 / 2 / 4 ranks: "
+          f"{peaks[1]} / {peaks[2]} / {peaks[4]}, falling {falls}; {smi}")
+    if not falls:
+        raise AssertionError("[horizon ranks] the fleet's peak memory does not fall with the "
+                             "group's size")
+    return k2_by_world
 
 
 def _horizon_phase(torch, smi, fleet: dict, dense: dict) -> dict:
@@ -1214,8 +1495,10 @@ def _horizon_phase(torch, smi, fleet: dict, dense: dict) -> dict:
     chunks (cyclic-reduction interiors through K2) and 8 chunks (T pads to
     104, chain interiors), float64 and mixed, cold and a warm re-solve
     after c *= 1.01; the phase-7 fleet at 4 chunks; ``solve_batch`` with
-    ``sharding`` on the phase-3 fleet.  Returns the phase's K2 launches by
-    dtype and the batch solve's K1 launches by route."""
+    ``sharding`` on the phase-3 fleet; then ``_hz_runs`` on the one rank,
+    the reference of ``_hz_ranks_phase`` on 2 and 4 ranks.  Returns the
+    phase's K2 launches by dtype, the batch solve's K1 launches by route
+    and the multi-rank part's K2 launches by dtype per rank."""
     import dataclasses
     import os
     import tempfile
@@ -1385,10 +1668,15 @@ def _horizon_phase(torch, smi, fleet: dict, dense: dict) -> dict:
                   f"{k1}; {smi}")
             if not (same and k1["resident"] > 0):
                 raise AssertionError("solve_batch(sharding=...) differs from phase 3's cold round")
+
+            # the reference of the multi-rank part: its runs on this one rank
+            ref = _hz_runs(torch, dist.group.WORLD)
+            _hz_check_reference(ref, smi)
         finally:
             multistage.cholesky_inverse_apply = kernel
             dist.destroy_process_group()
-    return dict(k2=k2_by_dtype, k1=k1)
+    k2_ranks = _hz_ranks_phase(torch, smi, ref)
+    return dict(k2=k2_by_dtype, k1=k1, k2_ranks=k2_ranks)
 
 
 # phase 15: the C interface's runs on the dense problem (name -> settings
@@ -2326,7 +2614,10 @@ def main() -> int:
         dict(data=data, settings=settings, cold=cold, cold_s=cold_s))
     for entry in kernels:
         if entry["kernel_route"] == "small":
-            entry["horizon_launches"] = hz["k2"][entry["name"].removeprefix("chol_inv_apply_")]
+            dtype = entry["name"].removeprefix("chol_inv_apply_")
+            entry["horizon_launches"] = hz["k2"][dtype]
+            entry["horizon_rank_launches"] = {world: [r[dtype] for r in ranks]
+                                              for world, ranks in hz["k2_ranks"].items()}
     print(f"[phase 14] {time.perf_counter() - t_new:.1f} s")
 
     # ---- 15. the C interface and the examples

@@ -30,7 +30,11 @@ back substitution uses products against Lo_inv; without it, the 4-tuple
 (Lo, X1, X2, XE) from the library Cholesky and triangular solves.
 
 The IPM core plugs this in through the dispatched ops (matvecs, Ruiz,
-precompute, factor, condensed_solve_x).  Construction (from stage blocks or
+precompute, factor, condensed_solve_x).  Each block function works on
+the stages its data holds (``StageQPData.owned``: all of them here) and
+joins the holders' pieces through three hooks, which
+``parallel.horizon`` registers as collectives for data that holds one
+rank's stages.  Construction (from stage blocks or
 from a general sparse QP by host-side structure detection) is numpy and
 scipy work with one host-to-device copy per field.
 """
@@ -38,6 +42,7 @@ scipy work with one host-to-device copy per field.
 from __future__ import annotations
 
 import dataclasses
+from functools import singledispatch
 from typing import Optional
 
 import numpy as np
@@ -128,8 +133,16 @@ class StageQPData:
     def m(self) -> int:
         return self.T * self.rg
 
+    @property
+    def owned(self) -> slice:
+        """The stages whose blocks this object holds: all of them here; a
+        ``parallel.ShardedStageQPData`` holds one rank's range."""
+        return slice(0, self.T)
+
 
 _BLOCKS = ("Pd", "Psub", "Pa", "Pc", "A1", "A2", "Ag", "G1", "G2", "Gg")
+# the fields indexed by stage; all but Pc
+STAGE_BLOCKS = tuple(k for k in _BLOCKS if k != "Pc")
 
 
 def _split_x(data: StageQPData, x):
@@ -160,40 +173,99 @@ def _finite(a) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# stage holders: every block function below computes the rows of the stages
+# its data holds (``data.owned``) and joins them through these three hooks.
+# Data that holds the whole horizon is its only holder, and the hooks pass
+# its pieces through unchanged; ``parallel.horizon`` registers collectives
+# for data that holds one rank's stages.
+# ---------------------------------------------------------------------------
+
+@singledispatch
+def gather_pieces(data, pieces: tuple) -> tuple:
+    """Every holder's ``pieces`` (problems on the leading dimension), each
+    stacked over the holders in stage order: (holders, B, ...)."""
+    return tuple(p[None] for p in pieces)
+
+
+@singledispatch
+def prev_pieces(data, pieces: tuple) -> tuple:
+    """The ``pieces`` of the holder of the stages before this one's (zeros
+    for the first holder)."""
+    return tuple(torch.zeros_like(p) for p in pieces)
+
+
+@singledispatch
+def sum_pieces(data, pieces: tuple) -> tuple:
+    """Each of ``pieces``, per-stage terms (B, Tl, ...), summed over every
+    stage of the horizon in stage order."""
+    return tuple(p.sum(dim=1) for p in pieces)
+
+
+def _joined(parts, spill=None, combine=torch.add):
+    """The whole horizon's rows (B, T, k) from every holder's owned rows
+    (holders, B, Tl, k) in stage order: each holder's ``spill`` (holders,
+    B, k), its last stage's share of the next stage, is combined into the
+    next holder's first stage (the last holder's falls off the horizon)."""
+    if parts.shape[0] == 1:
+        return parts[0]
+    Tl = parts.shape[2]
+    rows = torch.cat(tuple(parts), dim=1)
+    if spill is not None:
+        rows[:, Tl::Tl] = combine(rows[:, Tl::Tl], spill[:-1].movedim(0, 1))
+    return rows
+
+
+def _shift_in(a, head):
+    """out[i] = a[i-1] along the stage dimension 1, out[0] = ``head`` (the
+    previous holder's last ``a``)."""
+    return torch.cat([head[:, None], a[:, :-1]], dim=1)
+
+
+# ---------------------------------------------------------------------------
 # structured matvecs (multistage_kkt.hpp:1354-1706 as batched einsums)
 # ---------------------------------------------------------------------------
 
+def _owned_x(data: StageQPData, x):
+    """x's owned stages (B, Tl, D), the stages after them (zero past the
+    horizon) and the arrow part, a copy a stage (B, Tl, Da): every product
+    is then one a stage."""
+    xs, xg = _split_x(data, x)
+    own = data.owned
+    xo = xs[:, own]
+    return xo, _shift_up(xs, 1)[:, own], xg[:, None].expand(-1, xo.shape[1], -1)
+
+
 @mv.P_x.register
 def _(data: StageQPData, x):
-    xs, xg = _split_x(data, x)
-    u = torch.einsum("btij,btj->bti", data.Pd, xs)
-    u = u + _shift_down(torch.einsum("btij,btj->bti", data.Psub, xs), 1)
-    u = u + torch.einsum("btij,bti->btj", data.Psub, _shift_up(xs, 1))
-    u = u + torch.einsum("btad,ba->btd", data.Pa, xg)
-    yg = torch.einsum("btad,btd->ba", data.Pa, xs) + torch.einsum("bij,bj->bi", data.Pc, xg)
-    return _join_x(u, yg)
+    xo, x_next, xg = _owned_x(data, x)
+    t = _mv(data.Psub, xo)  # P[i+1, i] x_i, a row of stage i+1
+    u = _mv(data.Pd, xo)
+    u = u + _mv(data.Psub.mT, x_next)
+    u = u + _mv(data.Pa.mT, xg)
+    u = u + _shift_down(t, 1)  # last: the first owned stage's share comes in the join
+    u, t, yg = gather_pieces(data, (u, t[:, -1], _mv(data.Pa, xo)))
+    return _join_x(_joined(u, t), _joined(yg).sum(dim=1) + _mv(data.Pc, xg[:, 0]))
 
 
 @mv.P_diag.register
 def _(data: StageQPData):
-    d = torch.diagonal(data.Pd, dim1=-2, dim2=-1).flatten(1)
-    return torch.cat([d, torch.diagonal(data.Pc, dim1=-2, dim2=-1)], dim=-1)
+    d, = gather_pieces(data, (torch.diagonal(data.Pd, dim1=-2, dim2=-1),))
+    return torch.cat([_joined(d).flatten(1), torch.diagonal(data.Pc, dim1=-2, dim2=-1)], dim=-1)
 
 
 def _stage_rows_x(M1, M2, Mg, data, x):
-    xs, xg = _split_x(data, x)
-    ys = (torch.einsum("btrd,btd->btr", M1, xs)
-          + torch.einsum("btrd,btd->btr", M2, _shift_up(xs, 1))
-          + torch.einsum("btra,ba->btr", Mg, xg))
-    return ys.flatten(1)
+    xo, x_next, xg = _owned_x(data, x)
+    ys, = gather_pieces(data, (_mv(M1, xo) + _mv(M2, x_next) + _mv(Mg, xg),))
+    return _joined(ys).flatten(1)
 
 
-def _stage_rows_T(M1, M2, Mg, y):
-    ys = y.reshape(M1.shape[0], M1.shape[1], M1.shape[2])
-    us = torch.einsum("btrd,btr->btd", M1, ys)
-    us = us + _shift_down(torch.einsum("btrd,btr->btd", M2, ys), 1)
-    ug = torch.einsum("btra,btr->ba", Mg, ys)
-    return _join_x(us, ug)
+def _stage_rows_T(M1, M2, Mg, data, y):
+    ys = y.reshape(y.shape[0], data.T, M1.shape[2])[:, data.owned]
+    t = _mv(M2.mT, ys)  # a row of stage j+1
+    us = _mv(M1.mT, ys)
+    us = us + _shift_down(t, 1)
+    us, t, ug = gather_pieces(data, (us, t[:, -1], _mv(Mg.mT, ys)))
+    return _join_x(_joined(us, t), _joined(ug).sum(dim=1))
 
 
 @mv.A_x.register
@@ -203,7 +275,7 @@ def _(data: StageQPData, x):
 
 @mv.AT_y.register
 def _(data: StageQPData, y):
-    return _stage_rows_T(data.A1, data.A2, data.Ag, y)
+    return _stage_rows_T(data.A1, data.A2, data.Ag, data, y)
 
 
 @mv.G_x.register
@@ -213,7 +285,7 @@ def _(data: StageQPData, x):
 
 @mv.GT_z.register
 def _(data: StageQPData, z):
-    return _stage_rows_T(data.G1, data.G2, data.Gg, z)
+    return _stage_rows_T(data.G1, data.G2, data.Gg, data, z)
 
 
 @mv.abs_data.register
@@ -237,36 +309,56 @@ def _(data: StageQPData, mixed: bool = False):
 # block assembly (block_syrk, multistage_kkt.hpp:820-994)
 # ---------------------------------------------------------------------------
 
-def _assemble_blocks(data: StageQPData, ks):
-    """Blockwise K = P + diag(x_reg) + (1/delta_reg) A'A + G' W G:
-    (Kd, Ksub, Ka, Kc) of shapes (B, T, D, D), (B, T, D, D), (B, T, Da, D),
-    (B, Da, Da)."""
+def _assemble_owned(data: StageQPData, ks):
+    """Blockwise K = P + diag(x_reg) + (1/delta_reg) A'A + G' W G over the
+    owned stages: (Kd, Ksub, Ka, Kc, E_first) of shapes (B, Tl, D, D),
+    (B, Tl, D, D), (B, Tl, Da, D), (B, Da, Da) and (B, D, D).  The terms
+    that the stage before the owned range contributes to its first stage,
+    and E_first = K[first owned stage, the stage before it], come from the
+    previous holder (``prev_pieces``); Kc's stage sums are summed over the
+    holders."""
     B, T, rg = data.B, data.T, data.rg
+    own = data.owned
     dr_inv = (1.0 / ks.delta_reg)[:, None, None, None]
-    W = (1.0 / ks.z_reg_fact).reshape(B, T, rg)[..., None]
+    W = (1.0 / ks.z_reg_fact).reshape(B, T, rg)[:, own, :, None]
     xreg_s, xreg_g = _split_x(data, ks.x_reg)
     A1, A2, Ag, G1, G2, Gg = data.A1, data.A2, data.Ag, data.G1, data.G2, data.Gg
     GW1, GW2, GWg = G1 * W, G2 * W, Gg * W
     ein = torch.einsum
 
-    Kd = data.Pd + torch.diag_embed(xreg_s)
-    Kd = Kd + dr_inv * ein("btri,btrj->btij", A1, A1)
-    Kd = Kd + _shift_down(dr_inv * ein("btri,btrj->btij", A2, A2), 1)
-    Kd = Kd + ein("btri,btrj->btij", GW1, G1)
-    Kd = Kd + _shift_down(ein("btri,btrj->btij", GW2, G2), 1)
-
+    # the terms that fall on the next stage, and the sub-diagonal blocks
+    AA2 = dr_inv * ein("btri,btrj->btij", A2, A2)
+    GG2 = ein("btri,btrj->btij", GW2, G2)
+    AgA2 = dr_inv * ein("btra,btrd->btad", Ag, A2)
+    GgG2 = ein("btra,btrd->btad", GWg, G2)
     Ksub = data.Psub + dr_inv * ein("btri,btrj->btij", A2, A1)
     Ksub = Ksub + ein("btri,btrj->btij", GW2, G1)
+    hAA2, hGG2, hAgA2, hGgG2, E_first = prev_pieces(
+        data, (AA2[:, -1], GG2[:, -1], AgA2[:, -1], GgG2[:, -1], Ksub[:, -1]))
+
+    Kd = data.Pd + torch.diag_embed(xreg_s[:, own])
+    Kd = Kd + dr_inv * ein("btri,btrj->btij", A1, A1)
+    Kd = Kd + _shift_in(AA2, hAA2)
+    Kd = Kd + ein("btri,btrj->btij", GW1, G1)
+    Kd = Kd + _shift_in(GG2, hGG2)
 
     Ka = data.Pa + dr_inv * ein("btra,btrd->btad", Ag, A1)
-    Ka = Ka + _shift_down(dr_inv * ein("btra,btrd->btad", Ag, A2), 1)
+    Ka = Ka + _shift_in(AgA2, hAgA2)
     Ka = Ka + ein("btra,btrd->btad", GWg, G1)
-    Ka = Ka + _shift_down(ein("btra,btrd->btad", GWg, G2), 1)
+    Ka = Ka + _shift_in(GgG2, hGgG2)
 
+    AgAg, GgGg = sum_pieces(data, (ein("btra,btrc->btac", Ag, Ag), ein("btra,btrc->btac", GWg, Gg)))
     Kc = data.Pc + torch.diag_embed(xreg_g)
-    Kc = Kc + dr_inv[:, 0] * ein("btra,btrc->bac", Ag, Ag)
-    Kc = Kc + ein("btra,btrc->bac", GWg, Gg)
-    return Kd, Ksub, Ka, Kc
+    Kc = Kc + dr_inv[:, 0] * AgAg
+    Kc = Kc + GgGg
+    return Kd, Ksub, Ka, Kc, E_first
+
+
+def _assemble_blocks(data: StageQPData, ks):
+    """Blockwise K = P + diag(x_reg) + (1/delta_reg) A'A + G' W G:
+    (Kd, Ksub, Ka, Kc) of shapes (B, T, D, D), (B, T, D, D), (B, T, Da, D),
+    (B, Da, Da)."""
+    return _assemble_owned(data, ks)[:4]
 
 
 # ---------------------------------------------------------------------------
@@ -292,7 +384,13 @@ def _tsolve(L, b, transpose=False):
 
 
 def _mv(M, v):
-    return torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
+    """M v for (..., m, k) M and (..., k) v, as a product and a sum over
+    k.  The library's batched matrix-vector kernels change their summation
+    with the batch count (on the card, and in float32 on the CPU); this
+    form's bits do not, so a horizon split over holders computes the bits
+    of one that is whole.  On an H100 it costs no round time the host
+    clock can see against the library's products (``scripts/ms_rounds.py``)."""
+    return (M * v.unsqueeze(-2)).sum(-1)
 
 
 def chain_factor(Kd, Ksub, Ka):
@@ -381,11 +479,6 @@ def _bsolve(L, B):
     return torch.linalg.solve_triangular(L.mT, X, upper=True)
 
 
-def _inv_bsolve(Linv, B):
-    """Batched cho_solve through the explicit inverse: Linv' (Linv B)."""
-    return Linv.mT @ (Linv @ B)
-
-
 def _chol_inv_apply_flat(Do, RHS):
     """K2 over every odd block of the level at once: the leading
     dimensions (problems, chunks, blocks) are flattened into one (N, D, D)
@@ -470,15 +563,14 @@ def cr_chain_fwd(factors, vs):
     levels, (Ls, Cs, Fs) = factors
     gacc = vs.new_zeros(vs.shape[:-2] + (Fs.shape[-2],))
     v_odds = []
-    ein = torch.einsum
     for lev in levels:
         X1, X2, XE = lev[-3], lev[-2], lev[-1]
         T = vs.shape[-2]
         H_o = T // 2
         v_o, v_e = vs[..., 1::2, :], vs[..., 0::2, :]
         v_odds.append(v_o)
-        lv = ein("...kji,...kj->...ki", X1, v_o)
-        rv = ein("...kji,...kj->...ki", X2, v_o)
+        lv = _mv(X1.mT, v_o)
+        rv = _mv(X2.mT, v_o)
         if T % 2 == 0:
             vs = v_e - lv
             vs[..., 1:, :] -= rv[..., :-1, :]
@@ -486,7 +578,7 @@ def cr_chain_fwd(factors, vs):
             vs = v_e.clone()
             vs[..., :H_o, :] -= lv
             vs[..., 1:, :] -= rv
-        gacc = gacc + ein("...kja,...kj->...a", XE, v_o)
+        gacc = gacc + _mv(XE.flatten(-3, -2).mT, v_o.flatten(-2))  # sum over the odd blocks
     ws, gb = chain_fwd(Ls, Cs, Fs, vs)
     return (tuple(v_odds), ws), gacc + gb
 
@@ -498,7 +590,6 @@ def cr_chain_bwd(factors, state, xa):
     levels, (Ls, Cs, Fs) = factors
     v_odds, ws = state
     x = chain_bwd(Ls, Cs, Fs, ws, xa)
-    ein = torch.einsum
     for lev, v_o in zip(reversed(levels), reversed(v_odds)):
         X1, X2, XE = lev[-3], lev[-2], lev[-1]
         x_e = x
@@ -509,12 +600,12 @@ def cr_chain_bwd(factors, state, xa):
         else:
             x_next = x_e[..., 1:, :]
         if len(lev) == 5:  # explicit inverse: products against Lo_inv
-            x_o = _inv_bsolve(lev[1], v_o.unsqueeze(-1)).squeeze(-1)
+            x_o = _mv(lev[1].mT, _mv(lev[1], v_o))
         else:
             x_o = _bsolve(lev[0], v_o.unsqueeze(-1)).squeeze(-1)
-        x_o = x_o - ein("...kij,...kj->...ki", X1, x_e[..., :H_o, :])
-        x_o = x_o - ein("...kij,...kj->...ki", X2, x_next)
-        x_o = x_o - ein("...kia,...a->...ki", XE, xa)
+        x_o = x_o - _mv(X1, x_e[..., :H_o, :])
+        x_o = x_o - _mv(X2, x_next)
+        x_o = x_o - _mv(XE, xa[..., None, :].expand(XE.shape[:-2] + xa.shape[-1:]))
         x = x_e.new_zeros(x_e.shape[:-2] + (T, x_e.shape[-1]))
         x[..., 0::2, :] = x_e
         x[..., 1::2, :] = x_o
@@ -572,50 +663,55 @@ def _all_chunks(t):
 
 
 def _chunked_factor(Kd, Ksub, Ka, Kc, C: int, inverse: bool = False,
-                    own: Optional[slice] = None, gather=_all_chunks):
+                    own: Optional[slice] = None, gather=_all_chunks, E_first=None):
     """C chunk interiors of Q - 1 stages, each coupled to its two boundary
     separators and the arrow (coupling width W = 2D + Da), factored as one
     (B, C) batch; then the C-stage chain of separators and the arrow.
 
     ``own`` is the contiguous range of chunks whose interiors this process
-    factors (all C by default); ``gather`` joins per-chunk pieces across
-    the chunks: here the pair (Schur blocks (B, own chunks, W, W), the owned
-    interiors' flags (B,)) into (B, C, W, W) and the flags of every chunk,
-    in ``_chunked_solve`` a tensor (B, own chunks, ...) along dimension 1.
-    The single-device scheme owns every chunk and gathers nothing; the
-    horizon-sharded one (``parallel.horizon``) owns its rank's chunks and
-    gathers with ``torch.distributed``.  The separator chain is factored
-    whole on every process from the gathered Schur blocks."""
-    B, T, D = Kd.shape[0], Kd.shape[1], Kd.shape[-1]
+    factors (all C by default), and Kd, Ksub, Ka hold those chunks' stages
+    (B, own chunks x Q, ...); E_first is K[their first stage, the stage
+    before it] (None: zero, as for chunk 0).  ``gather`` joins per-chunk
+    pieces across the chunks: here the tuple (Schur blocks (B, own chunks,
+    W, W), the separators' Kd and Ka blocks, the owned interiors' flags
+    (B,)) into the pieces of every chunk, in ``_chunked_solve`` a tensor
+    (B, own chunks, ...) along dimension 1.  The single-device scheme owns
+    every chunk and gathers nothing; the horizon-sharded one
+    (``parallel.horizon``) owns its rank's chunks and gathers with
+    ``torch.distributed``.  The separator chain is factored whole on every
+    process from the gathered pieces."""
+    B, D = Kd.shape[0], Kd.shape[-1]
     Da = Kc.shape[-1]
-    Q = T // C
-    Qi = Q - 1
-    W = 2 * D + Da
     own = slice(0, C) if own is None else own
     Cl = own.stop - own.start
+    Q = Kd.shape[1] // Cl
+    Qi = Q - 1
+    W = 2 * D + Da
 
-    KdC = Kd.reshape(B, C, Q, D, D)
-    KsubC = Ksub.reshape(B, C, Q, D, D)
-    KaC = Ka.reshape(B, C, Q, Da, D)
+    KdC = Kd.reshape(B, Cl, Q, D, D)
+    KsubC = Ksub.reshape(B, Cl, Q, D, D)
+    KaC = Ka.reshape(B, Cl, Q, Da, D)
 
     # chunk k's coupling to the previous separator: the previous chunk's
     # last sub-diagonal block (zero for chunk 0)
-    E_prev = _shift_down(KsubC[:, :, Q - 1], 1)[:, own]
+    E_prev = _shift_down(KsubC[:, :, Q - 1], 1)
+    if E_first is not None:
+        E_prev[:, 0] = E_first
     Ea = Kd.new_zeros((B, Cl, Qi, W, D))
-    Ea[:, :, :, 2 * D:, :] = KaC[:, own, :Qi]
+    Ea[:, :, :, 2 * D:, :] = KaC[:, :, :Qi]
     Ea[:, :, 0, :D, :] = E_prev.mT
-    Ea[:, :, Qi - 1, D:2 * D, :] = KsubC[:, own, Qi - 1]
+    Ea[:, :, Qi - 1, D:2 * D, :] = KsubC[:, :, Qi - 1]
 
-    Ksub_int = KsubC[:, own, :Qi].clone()
+    Ksub_int = KsubC[:, :, :Qi].clone()
     Ksub_int[:, :, Qi - 1] = 0.0
     if _use_cr(Qi):
-        local, Sacc, ok = cr_chain_factor(KdC[:, own, :Qi], Ksub_int, Ea, inverse)
+        local, Sacc, ok = cr_chain_factor(KdC[:, :, :Qi], Ksub_int, Ea, inverse)
     else:
-        Ls, Cs, Fs, Sacc = chain_factor(KdC[:, own, :Qi], Ksub_int, Ea)
+        Ls, Cs, Fs, Sacc = chain_factor(KdC[:, :, :Qi], Ksub_int, Ea)
         local = (Ls, Cs, Fs)
         ok = _finite(Ls)
 
-    Sacc, ok = gather((Sacc, ok))
+    Sacc, sKd, sKa, ok = gather((Sacc, KdC[:, :, Q - 1], KaC[:, :, Q - 1], ok))
 
     S_pp = Sacc[..., :D, :D]
     S_oo = Sacc[..., D:2 * D, D:2 * D]
@@ -624,9 +720,9 @@ def _chunked_factor(Kd, Ksub, Ka, Kc, C: int, inverse: bool = False,
     S_ao = Sacc[..., 2 * D:, D:2 * D]
     S_aa = Sacc[..., 2 * D:, 2 * D:]
 
-    cKd = KdC[:, :, Q - 1] - S_oo - _shift_up(S_pp, 1)
+    cKd = sKd - S_oo - _shift_up(S_pp, 1)
     cKsub = -_shift_up(S_op, 1)
-    cKa = KaC[:, :, Q - 1] - S_ao - _shift_up(S_ap, 1)
+    cKa = sKa - S_ao - _shift_up(S_ap, 1)
     cKc = Kc - S_aa.sum(dim=1)
 
     cLs, cCs, cFs, cacc = chain_factor(cKd, cKsub, cKa)
@@ -639,8 +735,8 @@ def _chunked_solve(factors, vs, vg, T, D, Da, own: Optional[slice] = None,
                    gather=_all_chunks):
     """Two-level sweeps with the factors of ``_chunked_factor`` (the same
     ``own`` and ``gather``): the owned interiors' forward sweeps, the
-    separator chain's solve on the gathered reduced right-hand sides, the
-    owned interiors' backward sweeps, and the interior x gathered whole."""
+    separator chain's solve on the gathered reduced right-hand sides, the owned interiors' backward
+    sweeps, and the interior x gathered whole."""
     local, cLs, cCs, cFs, cLc = factors
     cr = isinstance(local[0], tuple)  # (levels, base) vs (Ls, Cs, Fs)
     B = vs.shape[0]
@@ -681,20 +777,20 @@ def _chunked_solve(factors, vs, vg, T, D, Da, own: Optional[slice] = None,
 # ---------------------------------------------------------------------------
 
 def _factor_blocks(data: StageQPData, ks, mixed: bool = False, pre=None):
-    """The condensed blocks (Kd, Ksub, Ka, Kc) a factor starts from:
-    ``mixed`` assembles them in float32 (from ``data32`` when
-    precomputed)."""
+    """The condensed blocks (Kd, Ksub, Ka, Kc, E_first) of
+    ``_assemble_owned`` a factor starts from: ``mixed`` assembles them in
+    float32 (from ``data32`` when precomputed)."""
     if not mixed:
-        return _assemble_blocks(data, ks)
+        return _assemble_owned(data, ks)
     f32 = torch.float32
     src = pre.get("data32") if isinstance(pre, dict) else None
     if src is None:
-        return tuple(k.to(f32) for k in _assemble_blocks(data, ks))
+        return tuple(k.to(f32) for k in _assemble_owned(data, ks))
     ks_f = dataclasses.replace(
         ks, x_reg=ks.x_reg.to(f32), z_reg_fact=ks.z_reg_fact.to(f32),
         delta_reg=ks.delta_reg.to(f32),
     )
-    return _assemble_blocks(src, ks_f)
+    return _assemble_owned(src, ks_f)
 
 
 @kkt_mod.factor.register
@@ -703,7 +799,7 @@ def _(data: StageQPData, ks, mixed: bool = False, pre=None, inverse: bool = True
     scheme ``_use_cr``/``_chunk_count`` select for T.  ``mixed`` assembles
     and factors in float32 (from ``data32`` when precomputed);
     ``inverse`` routes every cyclic-reduction level through K2."""
-    Kd, Ksub, Ka, Kc = _factor_blocks(data, ks, mixed, pre)
+    Kd, Ksub, Ka, Kc, _ = _factor_blocks(data, ks, mixed, pre)
     T = data.T
     C = _chunk_count(T)
     if _use_cr(T):
@@ -747,53 +843,74 @@ def _(data: StageQPData, ks, v):
 # stage Ruiz equilibration
 # ---------------------------------------------------------------------------
 
-def _stage_col_norms(blocks):
+def _colmax(M):  # (B, T, r, d) -> (B, T, d)
+    return max0(M.abs(), dim=-2)
+
+
+def _rowmax(M):  # (B, T, r, d) -> (B, T, r)
+    return max0(M.abs(), dim=-1)
+
+
+def _stage_col_norms(data: StageQPData, blocks):
     """Column (and row) infinity norms of the stage-structured KKT matrix,
-    per problem."""
+    per problem, from the owned stages' ``blocks`` joined over the holders
+    (the norms of P[i, i+1], A2[i] and G2[i] fall on stage i + 1)."""
     Pd, Psub, Pa, Pc, A1, A2, Ag, G1, G2, Gg, xb_s, xb_g = blocks
+    sub, a2, g2 = _rowmax(Psub), _colmax(A2), _colmax(G2)
+    norm_x = _colmax(Pd)
+    norm_x = torch.maximum(norm_x, _colmax(Psub))  # P[i+1,i] columns -> stage i
+    norm_x = torch.maximum(norm_x, _shift_down(sub, 1))  # P[i,i+1]
+    norm_x = torch.maximum(norm_x, _colmax(Pa))
+    norm_x = torch.maximum(norm_x, _colmax(A1))
+    norm_x = torch.maximum(norm_x, _shift_down(a2, 1))
+    norm_x = torch.maximum(norm_x, _colmax(G1))
+    norm_x = torch.maximum(norm_x, _shift_down(g2, 1))
+    spill = torch.maximum(torch.maximum(sub[:, -1], a2[:, -1]), g2[:, -1])
 
-    def colmax(M):  # (B, T, r, d) -> (B, T, d)
-        return max0(M.abs(), dim=-2)
+    norm_g = max0(_rowmax(Pa), dim=1)  # P[g, i] rows -> g columns
+    norm_g = torch.maximum(norm_g, max0(_colmax(Ag), dim=1))
+    norm_g = torch.maximum(norm_g, max0(_colmax(Gg), dim=1))
 
-    def rowmax(M):  # (B, T, r, d) -> (B, T, r)
-        return max0(M.abs(), dim=-1)
-
-    norm_x = colmax(Pd)
-    norm_x = torch.maximum(norm_x, colmax(Psub))  # P[i+1,i] columns -> stage i
-    norm_x = torch.maximum(norm_x, _shift_down(rowmax(Psub), 1))  # P[i,i+1]
-    norm_x = torch.maximum(norm_x, colmax(Pa))
-    norm_x = torch.maximum(norm_x, colmax(A1))
-    norm_x = torch.maximum(norm_x, _shift_down(colmax(A2), 1))
-    norm_x = torch.maximum(norm_x, colmax(G1))
-    norm_x = torch.maximum(norm_x, _shift_down(colmax(G2), 1))
-    norm_x = torch.maximum(norm_x, xb_s)
-
-    norm_g = max0(rowmax(Pa), dim=1)  # P[g, i] rows -> g columns
-    norm_g = torch.maximum(norm_g, max0(Pc.abs(), dim=-2))
-    norm_g = torch.maximum(norm_g, max0(colmax(Ag), dim=1))
-    norm_g = torch.maximum(norm_g, max0(colmax(Gg), dim=1))
+    norm_y = torch.maximum(_rowmax(A1), torch.maximum(_rowmax(A2), _rowmax(Ag)))
+    norm_z = torch.maximum(_rowmax(G1), torch.maximum(_rowmax(G2), _rowmax(Gg)))
+    norm_x, spill, norm_g, norm_y, norm_z = gather_pieces(
+        data, (norm_x, spill, norm_g, norm_y, norm_z))
+    norm_x = torch.maximum(_joined(norm_x, spill, torch.maximum), xb_s)
+    norm_g = torch.maximum(norm_g.amax(dim=0), max0(Pc.abs(), dim=-2))
     norm_g = torch.maximum(norm_g, xb_g)
-
-    norm_y = torch.maximum(rowmax(A1), torch.maximum(rowmax(A2), rowmax(Ag)))
-    norm_z = torch.maximum(rowmax(G1), torch.maximum(rowmax(G2), rowmax(Gg)))
-    return norm_x, norm_g, norm_y, norm_z
+    return norm_x, norm_g, _joined(norm_y), _joined(norm_z)
 
 
-def _scale_blocks(blocks, dx, dg, dy, dz, db_s, db_g):
+def _cost_col_norms(data: StageQPData, Pd, Psub, Pa):
+    """Column infinity norms of P's stage columns (B, T, D), from the owned
+    stages' blocks joined over the holders."""
+    sub = max0(Psub.abs(), dim=-1)
+    pn = max0(Pd.abs(), dim=-2)
+    pn = torch.maximum(pn, max0(Psub.abs(), dim=-2))
+    pn = torch.maximum(pn, _shift_down(sub, 1))
+    pn = torch.maximum(pn, max0(Pa.abs(), dim=-2))
+    pn, spill = gather_pieces(data, (pn, sub[:, -1]))
+    return _joined(pn, spill, torch.maximum)
+
+
+def _scale_blocks(blocks, own, dx, dg, dy, dz, db_s, db_g):
+    """The owned stages' ``blocks`` (and the whole x_b_scaling) scaled by
+    the whole horizon's scalings."""
     Pd, Psub, Pa, Pc, A1, A2, Ag, G1, G2, Gg, xb_s, xb_g = blocks
-    dx_next = _shift_up(dx, 1)
-    col_x, col_next = dx[:, :, None, :], dx_next[:, :, None, :]
+    dx_own, dx_next = dx[:, own], _shift_up(dx, 1)[:, own]
+    dy_own, dz_own = dy[:, own], dz[:, own]
+    col_x, col_next = dx_own[:, :, None, :], dx_next[:, :, None, :]
     col_g = dg[:, None, None, :]
-    Pd = Pd * dx[:, :, :, None] * col_x
+    Pd = Pd * dx_own[:, :, :, None] * col_x
     Psub = Psub * dx_next[:, :, :, None] * col_x
     Pa = Pa * dg[:, None, :, None] * col_x
     Pc = Pc * dg[:, :, None] * dg[:, None, :]
-    A1 = A1 * dy[..., None] * col_x
-    A2 = A2 * dy[..., None] * col_next
-    Ag = Ag * dy[..., None] * col_g
-    G1 = G1 * dz[..., None] * col_x
-    G2 = G2 * dz[..., None] * col_next
-    Gg = Gg * dz[..., None] * col_g
+    A1 = A1 * dy_own[..., None] * col_x
+    A2 = A2 * dy_own[..., None] * col_next
+    Ag = Ag * dy_own[..., None] * col_g
+    G1 = G1 * dz_own[..., None] * col_x
+    G2 = G2 * dz_own[..., None] * col_next
+    Gg = Gg * dz_own[..., None] * col_g
     return (Pd, Psub, Pa, Pc, A1, A2, Ag, G1, G2, Gg, xb_s * db_s * dx, xb_g * db_g * dg)
 
 
@@ -804,7 +921,9 @@ def _equilibrate_stage(
 ):
     """Ruiz equilibration over the stage blocks: the dense algorithm
     (preconditioner.hpp:64-222) with blockwise norms.  Every norm and the
-    early exit are per problem."""
+    early exit are per problem.  Each holder scales its own stages'
+    blocks; the norms are joined over the holders, so every holder
+    computes the same scalings and stops at the same pass."""
     lim = ruiz_mod._limit_scaling
     B, T, D, Da = data.B, data.T, data.D, data.Da
     dt, dev = data.c.dtype, data.c.device
@@ -824,7 +943,7 @@ def _equilibrate_stage(
         active = measure > epsilon
         if not bool(active.any()):
             break
-        norm_x, norm_g, norm_y, norm_z = _stage_col_norms(blocks)
+        norm_x, norm_g, norm_y, norm_z = _stage_col_norms(data, blocks)
         dx = 1.0 / torch.sqrt(lim(norm_x))
         dg = 1.0 / torch.sqrt(lim(norm_g))
         dy = 1.0 / torch.sqrt(lim(norm_y))
@@ -832,16 +951,13 @@ def _equilibrate_stage(
         db_s = 1.0 / torch.sqrt(lim(blocks[10]))
         db_g = 1.0 / torch.sqrt(lim(blocks[11]))
 
-        nblocks = _scale_blocks(blocks, dx, dg, dy, dz, db_s, db_g)
+        nblocks = _scale_blocks(blocks, data.owned, dx, dg, dy, dz, db_s, db_g)
         ncs, ncg = cs * dx, cg * dg
         nd = tuple(a * b for a, b in zip(d, (dx, dg, dy, dz, db_s, db_g)))
         ncost = cost
         if scale_cost:
             Pd, Psub, Pa, Pc = nblocks[:4]
-            pn = max0(Pd.abs(), dim=-2)
-            pn = torch.maximum(pn, max0(Psub.abs(), dim=-2))
-            pn = torch.maximum(pn, _shift_down(max0(Psub.abs(), dim=-1), 1))
-            pn = torch.maximum(pn, max0(Pa.abs(), dim=-2))
+            pn = _cost_col_norms(data, Pd, Psub, Pa)
             gsum = pn.sum(dim=(1, 2)) + max0(Pc.abs(), dim=-2).sum(dim=-1)
             gamma = lim(gsum / data.n)
             cmax = torch.maximum(max0(ncs.abs().flatten(1)), max0(ncg.abs()))
@@ -881,7 +997,7 @@ def _apply_scaling_stage(data: StageQPData, s: Scaling):
     xb_s, xb_g = _split_x(data, data.x_b_scaling)
     blocks = _scale_blocks(
         tuple(getattr(data, k) for k in _BLOCKS) + (xb_s, xb_g),
-        dx, dg, dy, dz, db_s, db_g,
+        data.owned, dx, dg, dy, dz, db_s, db_g,
     )
     c4, c3 = s.c[:, None, None, None], s.c[:, None, None]
     return dataclasses.replace(

@@ -1,6 +1,6 @@
 """Horizon-sharded multistage backend (``piqp_tpu/parallel/horizon.py``):
-the block-tridiagonal + arrow factorization split by stage chunks over the
-ranks of a ``torch.distributed`` process group.
+the stage blocks and the block-tridiagonal + arrow factorization split by
+stage chunks over the ranks of a ``torch.distributed`` process group.
 
 The reference's multistage factorization is a sequential recursion over
 stages (factor_kkt, sparse/multistage_kkt.hpp:1253-1352).  Here it is the
@@ -15,23 +15,56 @@ partitioned Schur-complement method of ``multistage._chunked_factor``:
     W = 2D + Da coupling an interior to [previous separator | own
     separator | arrow]; the sweep also gives the chunk's Schur blocks on
     those coupling variables.
- 3. The Schur blocks are all-gathered, and the separator chain (a
-    ``chunks``-stage block-tridiagonal + arrow system) is factored
-    redundantly on every rank.
+ 3. The Schur blocks and the separators' diagonal and arrow blocks are
+    all-gathered, and the separator chain (a ``chunks``-stage
+    block-tridiagonal + arrow system) is factored redundantly on every
+    rank.
  4. A solve runs the same two levels: owned interiors forward, the
     gathered reduced right-hand sides through the separator chain, owned
     interiors backward, and the interior x all-gathered.
 
-Collectives: one all-gather of the Schur blocks and the interiors' flags
-per factor (B chunks W^2 elements), and per solve one of the reduced
-right-hand sides (B chunks W) and one of the interior x (B T D: unlike the
-JAX package, whose x stays sharded, every rank gets the whole x).  The
-JAX package's neighbour ``ppermute`` is not needed: every rank holds the
-stage blocks whole.  The flat vectors and the
-IPM's vector work are replicated too, as the JAX package replicates its
-vectors, so every rank runs the same loop on bit-identical values; a solve
-checks at its end that every rank took the same iterations to the same
-status.
+Layout, as the JAX package's stage sharding: a rank holds only its own
+stages [rank, rank + 1) x T/world of the nine stage-indexed block fields
+(Pd, Psub, Pa, A1, A2, Ag, G1, G2, Gg; ``ShardedStageQPData.stages``), so
+their memory, their Ruiz scaling, the block assembly and the structured
+matvecs shrink with the group.  Pc and every flat (B, n), (B, p), (B, m)
+vector stay whole on every rank, as the JAX package replicates its
+vectors, and every rank runs the same IPM loop on bit-identical values; a
+solve checks at its end that every rank took the same iterations to the
+same status.  The block functions of ``multistage`` compute their owned
+stages' rows and join them through three hooks that this module
+registers, each one collective of ``comm``:
+
+- ``gather_pieces``, one all-gather: the owned rows of a matvec (one a
+  call of P x, A x, A' y, G x, G' z and diag(P)) or of a Ruiz pass's norms
+  (one a pass, and one more with ``scale_cost``), each with its last
+  stage's share of the next stage (P[i+1, i] x_i, A2' y, G2' z, the norms
+  of P[i, i+1], A2 and G2) and its arrow terms, one a stage (or its
+  partial max); every rank joins them in rank order into the whole
+  horizon's rows and sums the arrow terms over every stage;
+- ``prev_pieces``, the neighbour exchange (the JAX package's
+  ``ppermute``), once a factor: the A2/G2 terms of the previous rank's
+  last stage that fall on this rank's first stage, and its last Ksub
+  block, the first owned chunk's coupling to the previous separator;
+- ``sum_pieces``, one all-reduce a factor: the arrow block Kc's terms,
+  one a stage, summed over every stage.
+
+The joins add in the whole horizon's order, and the stage code's
+matrix-vector products (the matvecs, the interior sweeps) are a product
+and a sum (``multistage._mv``), whose bits do not depend on how many
+stages share a call as the library's batched kernels' do.  So the layout
+itself adds nothing that depends on the number of ranks: on the CPU a
+solve over 2 or 4 ranks gives the bits of a solve on one, and so does the
+D = 48 fleet on an H100.  A library factor or triangular solve can still
+round differently at another batch size (config 4 on 4 ranks of an H100,
+one problem a batch: x within 2.01e-12 of one rank's in float64).
+
+Per factor, then, one exchange, one all-reduce and one all-gather (the
+Schur blocks, the separators' Kd and Ka blocks and the interiors' flags;
+B x chunks x (W^2 + D^2 + Da D + 1) elements); per solve two all-gathers,
+of the reduced right-hand sides (B chunks W) and of the interior x (B T D:
+unlike the JAX package, whose x stays sharded, every rank gets the whole
+x).  None of these counts grows with T (``comm.collective_calls``).
 
 With one chunk per rank this is the JAX package's layout over a mesh axis.
 With several chunks per rank one device runs the partition of a larger
@@ -44,15 +77,16 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
-import torch.distributed as dist
 
 from .. import kkt as kkt_mod
 from .. import multistage as ms
 from ..api import _solve_fresh, _warm_vars
-from ..multistage import StageQPData
+from ..multistage import STAGE_BLOCKS, StageQPData
 from ..types import Result, Settings
 from ..utils.profiling import annotate
-from .comm import all_gather_cat, require_group
+from .comm import (
+    all_gather_cat, all_gather_pieces, all_reduce, exchange_prev, rank, require_group,
+)
 
 # Sharded factors and solves run in this process: the sharded registrations
 # add one each, nothing else does, so a caller can tell that they (and not
@@ -62,42 +96,82 @@ sharded_calls = {"factor": 0, "solve": 0}
 
 @dataclasses.dataclass
 class ShardedStageQPData(StageQPData):
-    """``StageQPData`` whose chunk interiors are factored over the ranks of
-    ``group`` (None: the default process group), ``chunks`` chunks in all,
-    chunks/world consecutive ones a rank.  ``group`` and ``chunks`` are
-    static: the tree helpers of ``types`` carry them over unchanged, and
-    ``dataclasses.replace`` (Ruiz scaling, the float32 copy of mixed
-    precision) keeps the type, so the sharded registrations below run."""
+    """``StageQPData`` of which this rank holds the stages ``stages`` =
+    [start, stop) of the nine stage-indexed block fields, out of a horizon
+    of ``horizon`` stages (``T``, and so ``n``, ``p`` and ``m``, are the
+    whole horizon's; Pc and the flat vectors are whole).  Its chunk
+    interiors are factored over the ranks of ``group`` (None: the default
+    process group), ``chunks`` chunks in all, chunks/world consecutive ones
+    a rank.  The four fields after the blocks are static: the tree helpers
+    of ``types`` carry them over unchanged, and ``dataclasses.replace``
+    (Ruiz scaling, the float32 copy of mixed precision) keeps the type, so
+    the sharded registrations below run.  Made by ``shard_horizon``."""
 
     group: Any = dataclasses.field(default=None, metadata={"static": True})
     chunks: int = dataclasses.field(default=1, metadata={"static": True})
+    horizon: int = dataclasses.field(default=0, metadata={"static": True})
+    stages: tuple = dataclasses.field(default=(0, 0), metadata={"static": True})
+
+    @property
+    def T(self) -> int:
+        return self.horizon
+
+    @property
+    def owned(self) -> slice:
+        return slice(*self.stages)
 
 
 def pad_stages(data: StageQPData, T_pad: int) -> StageQPData:
     """Append decoupled identity stages up to T_pad (``horizon.py:104-155``
-    of the JAX package): P = I, no couplings, padded inequality rows with
-    the benign [-1, 1] bounds of a dead row, so each padded stage is an
-    isolated, already optimal x = 0."""
-    T = data.T
+    of the JAX package), on the data's device: P = I, no couplings, padded
+    inequality rows with the benign [-1, 1] bounds of a dead row, so each
+    padded stage is an isolated, already optimal x = 0."""
+    T, D, B = data.T, data.D, data.B
     if T_pad < T:
         raise ValueError(f"T_pad={T_pad} < T={T}")
     if T_pad == T:
         return data
-    names = [f.name for f in dataclasses.fields(StageQPData)]
-    arrays = [ms._pad_stage_arrays({k: getattr(data, k)[b].cpu().numpy() for k in names}, T_pad)
-              for b in range(data.B)]
-    return ms.stage_data_from_arrays(arrays, dtype=data.c.dtype, device=data.c.device)
+    extra = T_pad - T
+
+    def pad_t(a, fill=0.0):  # (B, T, ...) -> (B, T_pad, ...)
+        return torch.cat([a, a.new_full((B, extra) + a.shape[2:], fill)], dim=1)
+
+    def pad_x(v, fill=0.0):  # flat x layout: [T*D stage coords, Da arrow coords]
+        stage = pad_t(v[:, :T * D].reshape(B, T, D), fill)
+        return torch.cat([stage.flatten(1), v[:, T * D:]], dim=1)
+
+    def pad_rows(v, r, fill=0.0):
+        return pad_t(v.reshape(B, T, r), fill).flatten(1) if r else v
+
+    eye = torch.eye(D, dtype=data.Pd.dtype, device=data.Pd.device)
+    ra, rg = data.ra, data.rg
+    return dataclasses.replace(
+        data,
+        Pd=torch.cat([data.Pd, eye.expand(B, extra, D, D)], dim=1),
+        **{k: pad_t(getattr(data, k)) for k in STAGE_BLOCKS if k != "Pd"},
+        c=pad_x(data.c), x_b_scaling=pad_x(data.x_b_scaling, 1.0),
+        x_l=pad_x(data.x_l), x_u=pad_x(data.x_u),
+        xl_mask=pad_x(data.xl_mask, False), xu_mask=pad_x(data.xu_mask, False),
+        b=pad_rows(data.b, ra), h_l=pad_rows(data.h_l, rg, -1.0),
+        h_u=pad_rows(data.h_u, rg, 1.0), hl_mask=pad_rows(data.hl_mask, rg, True),
+        hu_mask=pad_rows(data.hu_mask, rg, True),
+    )
 
 
 def shard_horizon(data: StageQPData, group=None, chunks: Optional[int] = None,
-                  pad: bool = True) -> ShardedStageQPData:
-    """The stage data laid out for a sharded solve over ``group``.
+                  pad: bool = True, device=None) -> ShardedStageQPData:
+    """This rank's part of the stage data laid out for a sharded solve over
+    ``group``.
 
     ``chunks`` (default: the group's size) must be a multiple of the group's
     size.  A horizon is shardable when T % chunks == 0 and T/chunks >= 2
     (each chunk needs an interior stage beside its separator); otherwise
     ``pad=True`` pads T up to max(2 chunks, ceil(T/chunks) chunks) with
-    decoupled identity stages and ``pad=False`` raises."""
+    decoupled identity stages and ``pad=False`` raises.  The rank keeps
+    the stage blocks of its chunks and the whole of Pc and the flat
+    vectors, on ``device`` (None: the data's own), so a long horizon can
+    be handed over on the host and only each rank's stages reach its
+    card."""
     world = require_group(group)
     chunks = world if chunks is None else chunks
     if chunks < 1 or chunks % world:
@@ -110,37 +184,71 @@ def shard_horizon(data: StageQPData, group=None, chunks: Optional[int] = None,
                 "T/chunks >= 2); pass pad=True"
             )
         data = pad_stages(data, max(2 * chunks, -(-T // chunks) * chunks))
-    fields = {f.name: getattr(data, f.name) for f in dataclasses.fields(StageQPData)}
-    return ShardedStageQPData(group=group, chunks=chunks, **fields)
+    per = data.T // world
+    r = rank(group)
+    return _take_stages(data, (r * per, (r + 1) * per), group, chunks, device)
+
+
+def _take_stages(data: StageQPData, stages: tuple, group=None, chunks: int = 1,
+                device=None) -> ShardedStageQPData:
+    """The ``ShardedStageQPData`` that holds the stages [start, stop) of
+    ``data``'s blocks (compact copies) and the whole of its other fields,
+    on ``device`` (None: the data's own); ``shard_horizon``'s layout
+    without a process group."""
+    start, stop = stages
+    dev = data.c.device if device is None else torch.device(device)
+    fields = {}
+    for f in dataclasses.fields(StageQPData):
+        t = getattr(data, f.name)
+        if f.name in STAGE_BLOCKS:
+            t = t[:, start:stop]
+        fields[f.name] = t.to(dev).contiguous()
+    return ShardedStageQPData(group=group, chunks=chunks, horizon=data.T,
+                              stages=(start, stop), **fields)
+
+
+@ms.gather_pieces.register
+def _(data: ShardedStageQPData, pieces: tuple) -> tuple:
+    return all_gather_pieces(pieces, data.group)
+
+
+@ms.prev_pieces.register
+def _(data: ShardedStageQPData, pieces: tuple) -> tuple:
+    return exchange_prev(pieces, data.group)
+
+
+@ms.sum_pieces.register
+def _(data: ShardedStageQPData, pieces: tuple) -> tuple:
+    return all_reduce(pieces, data.group)
 
 
 def _partition(data: ShardedStageQPData):
     """(the chunks this rank owns, the gather of ``multistage._chunked_factor``
     and ``_chunked_solve`` that joins per-chunk pieces across the ranks)."""
-    per = data.chunks // dist.get_world_size(data.group)
-    rank = dist.get_rank(data.group)
+    Q = data.T // data.chunks
+    own = slice(data.stages[0] // Q, data.stages[1] // Q)
 
     def gather(piece):
         if not isinstance(piece, tuple):
             return all_gather_cat(piece, data.group, dim=1)
-        # (Schur blocks, flags): one all-gather, the flags as a last column
-        Sacc, ok = piece
-        B, Cl, W = Sacc.shape[:3]
-        flags = ok.to(Sacc.dtype)[:, None, None].expand(B, Cl, 1)
-        packed = all_gather_cat(torch.cat([Sacc.flatten(-2), flags], dim=-1), data.group, dim=1)
-        return (packed[..., :-1].reshape(B, -1, W, W),
-                (packed[..., -1] == 1.0).all(dim=1))
+        # (Schur blocks, separators' Kd and Ka, flags): one all-gather, the
+        # flags as a last column
+        *blocks, ok = piece
+        parts = all_gather_pieces(tuple(blocks) + (ok.to(blocks[0].dtype)[:, None],), data.group)
+        joined = tuple(p.movedim(0, 1).flatten(1, 2) for p in parts[:-1])
+        return joined + ((parts[-1][..., 0] == 1.0).all(dim=0),)
 
-    return slice(rank * per, (rank + 1) * per), gather
+    return own, gather
 
 
 @kkt_mod.factor.register
 def _(data: ShardedStageQPData, ks, mixed: bool = False, pre=None, inverse: bool = True):
     """The partitioned factorization, this rank's chunk interiors."""
     with annotate("horizon.factor"):
-        Kd, Ksub, Ka, Kc = ms._factor_blocks(data, ks, mixed, pre)
+        Kd, Ksub, Ka, Kc, E_first = ms._factor_blocks(data, ks, mixed, pre)
         own, gather = _partition(data)
-        factors, ok = ms._chunked_factor(Kd, Ksub, Ka, Kc, data.chunks, inverse, own, gather)
+        factors, ok = ms._chunked_factor(Kd, Ksub, Ka, Kc, data.chunks, inverse, own, gather,
+                                         E_first)
     sharded_calls["factor"] += 1
     return dataclasses.replace(ks, factor=factors), ok
 

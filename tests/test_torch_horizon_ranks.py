@@ -3,9 +3,12 @@
 
 - ``solve_horizon_sharded`` on the T = 68 case with 4 chunks in all (2
   ranks x 2 chunks, 4 ranks x 1 chunk) against the one-rank 4-chunk run:
-  every rank's x identical to the others', iterations equal, x within
-  1e-12 of the one-rank run; the end-of-solve check raises on every rank
-  when one rank reports other iterations;
+  every rank holds only its T/world stages of the nine block fields (Pc
+  and the flat vectors whole), every rank's x identical to the others',
+  iterations equal, x within 1e-12 of the one-rank run, and a mixed
+  solve in the same processes within 1e-4 of the one-rank mixed run; the
+  end-of-solve check raises on every rank when one rank reports other
+  iterations;
 - ``solve_batch(sharding=group)`` on 2 ranks, 8 dense problems (cold, and
   warm after moving c, the warm start split with the batch) and a stacked
   stage fleet of 4, against the unsharded solve: status and iterations
@@ -40,6 +43,7 @@ T68 = dict(T=68, D=3, Da=2, ra=2, rg=2, seed=3)
 DENSE = [dict(dim=12, n_eq=4, n_ineq=6, seed=200 + i) for i in range(8)]
 FLEET = dict(seeds=[30, 31, 32, 33], T=8, D=3, Da=2, ra=2, rg=2)
 SPAWN_TIMEOUT_S = 180
+FIELDS = [f.name for f in dataclasses.fields(tms.StageQPData)]
 
 
 @contextlib.contextmanager
@@ -64,8 +68,10 @@ def _horizon_rank(rank, world, store, out, chunks):
     torch.set_num_threads(1)
     with gloo_group(store, rank, world):
         before = horizon.sharded_calls["factor"]
-        res = solve_horizon_sharded(tms.random_multistage_qp(**T68, device="cpu"),
-                                    chunks=chunks)
+        sdata = horizon.shard_horizon(tms.random_multistage_qp(**T68, device="cpu"),
+                                      chunks=chunks)
+        res = solve_horizon_sharded(sdata)
+        mixed = solve_horizon_sharded(sdata, settings=Settings(mixed_precision=True))
         # a rank that ended elsewhere is caught by the end-of-solve check
         off = dataclasses.replace(res, info=dataclasses.replace(
             res.info, iter=res.info.iter + (rank == world - 1)))
@@ -77,7 +83,10 @@ def _horizon_rank(rank, world, store, out, chunks):
         np.savez(out / f"rank{rank}.npz", x=res.x.numpy(), iter=res.info.iter.numpy(),
                  status=res.info.status.numpy(),
                  factors=horizon.sharded_calls["factor"] - before,
-                 disagreement_raised=disagreement_raised)
+                 disagreement_raised=disagreement_raised,
+                 mixed_x=mixed.x.numpy(), mixed_status=mixed.info.status.numpy(),
+                 stages=np.array(sdata.stages), horizon=sdata.T,
+                 **{f"shape_{k}": np.array(getattr(sdata, k).shape) for k in FIELDS})
 
 
 def _batch_rank(rank, world, store, out):
@@ -124,9 +133,16 @@ def _spawn(fn, world, tmp_path, *args) -> list:
 
 @pytest.mark.parametrize("world", [2, 4])
 def test_horizon_ranks_match_one_rank(world, tmp_path, gloo):
-    ref = solve_horizon_sharded(tms.random_multistage_qp(**T68, device="cpu"), chunks=4)
-    assert ref.info.status.tolist() == [1]
+    """Also: each rank holds only its T/world stages of the nine block
+    fields, and Pc and the flat vectors whole; its mixed-precision solve
+    reaches the one-rank mixed solution (same status, x within 1e-4, the
+    tests' mixed tolerance, ROADMAP Queue 3)."""
+    base = tms.random_multistage_qp(**T68, device="cpu")
+    ref = solve_horizon_sharded(base, chunks=4)
+    ref_mixed = solve_horizon_sharded(base, chunks=4, settings=Settings(mixed_precision=True))
+    assert ref.info.status.tolist() == ref_mixed.info.status.tolist() == [1]
     ranks = _spawn(_horizon_rank, world, tmp_path, 4)
+    per = T68["T"] // world
     for r, got in enumerate(ranks):
         assert got["factors"] > 0, f"rank {r} ran no sharded factor"
         assert bool(got["disagreement_raised"]), f"rank {r} missed a disagreeing rank"
@@ -134,6 +150,19 @@ def test_horizon_ranks_match_one_rank(world, tmp_path, gloo):
         assert got["status"].tolist() == [1]
         assert got["iter"].tolist() == ref.info.iter.tolist()
         np.testing.assert_allclose(got["x"], ref.x.numpy(), rtol=0, atol=1e-12)
+
+        assert got["stages"].tolist() == [r * per, (r + 1) * per] and int(got["horizon"]) == 68
+        for k in FIELDS:
+            shape = tuple(got[f"shape_{k}"].tolist())
+            whole = tuple(getattr(base, k).shape)
+            if k in tms.STAGE_BLOCKS:
+                assert shape == (whole[0], per) + whole[2:], f"rank {r} {k} {shape}"
+            else:
+                assert shape == whole, f"rank {r} {k} {shape}"
+
+        assert got["mixed_status"].tolist() == [1]
+        np.testing.assert_array_equal(got["mixed_x"], ranks[0]["mixed_x"], err_msg=f"rank {r}")
+        np.testing.assert_allclose(got["mixed_x"], ref_mixed.x.numpy(), rtol=0, atol=1e-4)
 
 
 def test_solve_batch_sharding_matches_unsharded(tmp_path):
