@@ -1,0 +1,9 @@
+"""device_idle.warm: the share of the traced window in which no operation
+ran on the device (1 minus the union of the intervals of its kernels,
+copies and fills), in %."""
+
+
+def read(run):
+    if run.trace is None or not run.trace.device:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)

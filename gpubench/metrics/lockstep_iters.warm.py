@@ -1,0 +1,6 @@
+"""lockstep_iters.warm: the batch's most IPM iterations a round
+(Result.info.iter), mean over the window's rounds."""
+
+
+def read(run):
+    return sum(run.iters) / len(run.iters) if run.iters else None
