@@ -45,6 +45,7 @@ from .types import (
     resolve_device,
     zero_vars,
 )
+from .utils.profiling import annotate
 
 def _route_backend(data, settings: Settings):
     """Re-wrap dense data in the type that selects ``settings.kkt_solver``
@@ -176,17 +177,20 @@ def has_cone(data: QPData) -> bool:
 
 def _solve_fresh(data: QPData, settings: Settings, cone: bool, warm=None):
     """Equilibrate + solve; returns (result, scaling)."""
-    sdata, sc = ruiz.equilibrate(
-        data,
-        max_iter=settings.preconditioner_iter,
-        scale_cost=settings.preconditioner_scale_cost,
-    )
-    return solver.solve_scaled(sdata, sc, settings, cone, warm), sc
+    with annotate("piqp.solve"):
+        with annotate("piqp.ruiz"):
+            sdata, sc = ruiz.equilibrate(
+                data,
+                max_iter=settings.preconditioner_iter,
+                scale_cost=settings.preconditioner_scale_cost,
+            )
+        return solver.solve_scaled(sdata, sc, settings, cone, warm), sc
 
 
 def _solve_reuse(data: QPData, sc: Scaling, settings: Settings, cone: bool, warm=None):
-    sdata = ruiz.apply_scaling(data, sc)
-    return solver.solve_scaled(sdata, sc, settings, cone, warm)
+    with annotate("piqp.solve"):
+        sdata = ruiz.apply_scaling(data, sc)
+        return solver.solve_scaled(sdata, sc, settings, cone, warm)
 
 
 def _warm_vars(warm) -> BasicVars | None:

@@ -40,6 +40,7 @@ from .types import (
     index_put,
     resolve_device,
 )
+from .utils.profiling import annotate
 
 
 def prepare_batch(
@@ -50,10 +51,11 @@ def prepare_batch(
     The canonicalization runs in numpy and each field moves to the device
     once."""
     device = resolve_device(device)
-    arrays = [canonical_arrays(**prob, dtype=dtype) for prob in problems]
-    return qpdata_from_arrays(
-        {k: np.stack([a[k] for a in arrays]) for k in arrays[0]}, device
-    )
+    with annotate("piqp.entry.canonical"):
+        arrays = [canonical_arrays(**prob, dtype=dtype) for prob in problems]
+        stacked = {k: np.stack([a[k] for a in arrays]) for k in arrays[0]}
+    with annotate("piqp.entry.copy"):
+        return qpdata_from_arrays(stacked, device)
 
 
 def warm_from_result(res: Result) -> BasicVars:

@@ -34,6 +34,7 @@ from .ops import matvec as ops
 from .ops.chol_inv import cholesky_with_inverse, inv_solve
 from .ops.signed_chol_inv import signed_cholesky_with_inverse, signed_inv_solve
 from .types import FullKKTQPData, LDLTKKTQPData, QPData, Settings, Vars, max0, select
+from .utils.profiling import annotate
 
 
 @dataclasses.dataclass
@@ -529,6 +530,11 @@ def solve(
     """Full KKT solve: condense the right-hand side, solve the (x, y, z)
     system, recover the slack/dual directions (kkt_system.hpp:213-369).
     Returns (lhs, ok) with ok (B,)."""
+    with annotate("piqp.kkt.solve"):
+        return _solve(data, settings, ks, rhs, mu, mat32, active)
+
+
+def _solve(data, settings, ks, rhs, mu, mat32, active):
     # condensed inequality RHS (kkt_system.hpp:219-234)
     rz_l_bar = torch.where(data.hl_mask, rhs.z_l - ks.z_l_inv * rhs.s_l, 0.0)
     rz_u_bar = torch.where(data.hu_mask, rhs.z_u - ks.z_u_inv * rhs.s_u, 0.0)

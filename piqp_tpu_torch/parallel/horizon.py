@@ -244,7 +244,7 @@ def _partition(data: ShardedStageQPData):
 @kkt_mod.factor.register
 def _(data: ShardedStageQPData, ks, mixed: bool = False, pre=None, inverse: bool = True):
     """The partitioned factorization, this rank's chunk interiors."""
-    with annotate("horizon.factor"):
+    with annotate("piqp.horizon.factor"):
         Kd, Ksub, Ka, Kc, E_first = ms._factor_blocks(data, ks, mixed, pre)
         own, gather = _partition(data)
         factors, ok = ms._chunked_factor(Kd, Ksub, Ka, Kc, data.chunks, inverse, own, gather,
@@ -256,7 +256,7 @@ def _(data: ShardedStageQPData, ks, mixed: bool = False, pre=None, inverse: bool
 @kkt_mod.condensed_solve_x.register
 def _(data: ShardedStageQPData, ks, v):
     """Two-level sweeps in the factor's precision, this rank's interiors."""
-    with annotate("horizon.solve"):
+    with annotate("piqp.horizon.solve"):
         F = ks.factor
         vs, vg = ms._split_x(data, v.to(F[-1].dtype))
         own, gather = _partition(data)

@@ -38,6 +38,7 @@ from .types import (
     min0,
     select,
 )
+from .utils.profiling import annotate
 
 _TINY = 1e-30
 _RUNNING = int(Status.RUNNING)
@@ -510,8 +511,9 @@ def factor_ladder(
     inverse = settings.factor_inverse
 
     def attempt(rho, delta, ir):
-        ks = kkt.compute_scalings(data, settings, vars, rho, delta, ir, P_diag)
-        return kkt.factor(data, ks, mixed, pre, inverse)
+        with annotate("piqp.kkt.factor"):
+            ks = kkt.compute_scalings(data, settings, vars, rho, delta, ir, P_diag)
+            return kkt.factor(data, ks, mixed, pre, inverse)
 
     rho, delta = info.rho, info.delta
     retries, reg_limit = info.factor_retires, info.reg_limit
@@ -1123,13 +1125,19 @@ def solve_scaled(
         return st
 
     def loop(st, active, phase_a):
-        while True:
-            act = active & cond(st)
-            if phase_a:
-                act = act & in_phase_a(st)
-            if not bool(act.any()):
-                return st
-            st = step(st, act, phase_a)
+        def running(s):
+            act = active & cond(s)
+            return act & in_phase_a(s) if phase_a else act
+
+        act = running(st)
+        go = bool(act.any())
+        while go:
+            # a trip: the step, then the exit test it leads to
+            with annotate("piqp.ipm.iter"):
+                st = step(st, act, phase_a)
+                act = running(st)
+                go = bool(act.any())
+        return st
 
     def in_phase_a(s):
         in_a = s.info.mu > settings.mixed_precision_mu_switch

@@ -10,6 +10,27 @@ The reference compiles ~80 Tracy zone macros in under BUILD_WITH_TRACY
 - :func:`annotate`: a named region that shows in that trace (the Zone
   macro analog), and as an NVTX range on a CUDA run.
 
+A region is recorded only while a profiler records: ``torch.profiler``
+(Kineto puts the span on the clock of the card's kernels, copies and
+fills) or ``torch.autograd.profiler.emit_nvtx()`` for Nsight.  Otherwise
+``annotate`` costs one check of the profiler's flag and enters nothing.
+Regions nest by time on their thread, so a region's parent is the region
+that encloses it; the profiler keeps them, nothing else does.
+
+The program's regions are named ``piqp.<layer>[.<part>]``:
+
+- ``piqp.entry.canonical``, ``piqp.entry.copy``: ``batch.prepare_batch``'s
+  numpy canonicalisation and its host-to-device copies;
+- ``piqp.solve``: one request, ``api._solve_fresh`` or ``_solve_reuse``;
+- ``piqp.ruiz``: the Ruiz equilibration of ``_solve_fresh``;
+- ``piqp.ipm.iter``: one trip of ``solver.solve_scaled``'s loop, in either
+  mixed-precision phase, with the exit test that follows it;
+- ``piqp.kkt.factor``: one factorization attempt of
+  ``solver.factor_ladder`` (scalings and ``kkt.factor``), retries included;
+- ``piqp.kkt.solve``: ``kkt.solve``, iterative refinement included;
+- ``piqp.horizon.factor``, ``piqp.horizon.solve``: the horizon-sharded
+  factorization and condensed solve (``parallel/horizon.py``).
+
 Wall-clock phase timings stay host-side in the stateful solvers
 (``Settings(compute_timings=True)``).
 """
@@ -22,6 +43,10 @@ import os
 import torch
 
 TRACE_FILE = "trace.json"
+
+# whether a profiler (torch.profiler, or autograd's emit_nvtx) records
+_recording = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -39,10 +64,18 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
 
-@contextlib.contextmanager
 def annotate(name: str):
-    """Named region for trace timelines: ``torch.profiler.record_function``
-    and, on a CUDA run, ``torch.cuda.nvtx.range``."""
+    """Named region for trace timelines while a profiler records:
+    ``torch.profiler.record_function`` and, on a CUDA run,
+    ``torch.cuda.nvtx.range``.  With no profiler recording, a context that
+    does nothing."""
+    if not _recording():
+        return _OFF
+    return _span(name)
+
+
+@contextlib.contextmanager
+def _span(name: str):
     with contextlib.ExitStack() as stack:
         stack.enter_context(torch.profiler.record_function(name))
         if torch.cuda.is_available():

@@ -122,8 +122,8 @@ def test_trace_names_the_sharded_ranges(tmp_path, gloo):  # noqa: F811
     path = tmp_path / "prof" / profiling.TRACE_FILE
     events = json.loads(path.read_text())["traceEvents"]
     names = {e.get("name") for e in events}
-    assert {"user.region", "horizon.factor", "horizon.solve"} <= names
+    assert {"user.region", "piqp.horizon.factor", "piqp.horizon.solve"} <= names
     # one range per sharded factor and solve the solve ran
     for what in ("factor", "solve"):
-        ranges = sum(e.get("name") == f"horizon.{what}" for e in events)
+        ranges = sum(e.get("name") == f"piqp.horizon.{what}" for e in events)
         assert ranges == sharded_calls[what] - before[what] > 0, what
