@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from . import graphs
 from .ops import ldlt
 from .ops import matvec as ops
 from .ops.chol_inv import cholesky_with_inverse, inv_solve
@@ -448,37 +449,34 @@ def _finite_sum(*vs) -> torch.Tensor:
     return torch.isfinite(total)
 
 
-def _solve_condensed_refined(
-    data: QPData, settings: Settings, ks: KKTState, rx, ry, rz, mu=None,
-    mat32=None, active=None,
-):
-    """Backend solve + iterative refinement (kkt_system.hpp:254-308), always
-    on, against the unregularized target.
-
-    ``mu`` (B,): with ``settings.refine_mu_factor > 0`` the exit tolerance
-    is relaxed to ``max(tol, refine_mu_factor * mu)`` (inexact IPM).  With
-    ``mat32`` as well and ``refine_static_passes >= 0`` (mixed phase A),
-    exactly that many correction passes run with no error norms.
-    Otherwise the adaptive loop runs: each problem stops on its own when
-    its error is below tolerance, stops improving or turns non-finite.
-    ``active`` (B,) limits the loop to the problems whose result is used.
-    Returns (lx, ly, lz, ok) with ok (B,)."""
-    lx, ly, lz = _backend_solve(data, ks, rx, ry, rz, mat32)
-
-    if (
+def _static_refinement(settings: Settings, mu, mat32) -> bool:
+    """Whether a solve takes mixed phase A's fixed refinement passes (no
+    error norms, no host decision) instead of the adaptive loop."""
+    return (
         mat32 is not None
         and mu is not None
         and settings.refine_mu_factor > 0
         and settings.refine_static_passes >= 0
-    ):
-        for _ in range(settings.refine_static_passes):
-            ex, ey, ez = mul_condensed(data, ks, lx, ly, lz, mat32)
-            dx, dy, dz = _backend_solve(
-                data, ks, rx - ex, ry - ey, rz - ez, mat32
-            )
-            lx, ly, lz = lx + dx, ly + dy, lz + dz
-        return lx, ly, lz, _finite_sum(lx, ly, lz)
+    )
 
+
+def _refine_static(data, settings: Settings, ks: KKTState, rx, ry, rz, mat32):
+    """The backend solve and ``refine_static_passes`` correction passes;
+    returns (lx, ly, lz, ok)."""
+    lx, ly, lz = _backend_solve(data, ks, rx, ry, rz, mat32)
+    for _ in range(settings.refine_static_passes):
+        ex, ey, ez = mul_condensed(data, ks, lx, ly, lz, mat32)
+        dx, dy, dz = _backend_solve(
+            data, ks, rx - ex, ry - ey, rz - ez, mat32
+        )
+        lx, ly, lz = lx + dx, ly + dy, lz + dz
+    return lx, ly, lz, _finite_sum(lx, ly, lz)
+
+
+def _refine_open(data, settings: Settings, ks: KKTState, rx, ry, rz, mu, mat32):
+    """The backend solve and its error, opening the adaptive loop; returns
+    the loop's state (lx, ly, lz, ex, ey, ez, err, ok, done, tol)."""
+    lx, ly, lz = _backend_solve(data, ks, rx, ry, rz, mat32)
     rhs_norm = _inf3(rx, ry, rz)
     ex, ey, ez, err = _refine_error(data, ks, lx, ly, lz, rx, ry, rz, mat32)
     ok = torch.isfinite(err)
@@ -495,32 +493,40 @@ def _solve_condensed_refined(
         tol = torch.maximum(
             tol, 32.0 * torch.finfo(torch.float32).eps * rhs_norm
         )
+    return lx, ly, lz, ex, ey, ez, err, ok, torch.zeros_like(ok), tol
 
-    done = torch.zeros_like(ok)
-    for _ in range(settings.iterative_refinement_max_iter):
-        run = ~done & ok & (err > tol)
-        if active is not None:
-            run = run & active
-        if not bool(run.any()):
-            break
-        dx, dy, dz = _backend_solve(data, ks, ex, ey, ez, mat32)
-        cx, cy, cz = lx + dx, ly + dy, lz + dz
-        nex, ney, nez, nerr = _refine_error(
-            data, ks, cx, cy, cz, rx, ry, rz, mat32
-        )
-        nok = torch.isfinite(nerr)
-        rate = err / nerr
-        slow = rate < settings.iterative_refinement_min_improvement_rate
-        # kkt_system.hpp:289-301: on slow improvement keep the better
-        # iterate and stop; otherwise accept and continue
-        accept = run & nok & (~slow | (rate > 1.0))
-        lx, ly, lz, ex, ey, ez, err = select(
-            accept, (cx, cy, cz, nex, ney, nez, nerr),
-            (lx, ly, lz, ex, ey, ez, err),
-        )
-        done = torch.where(run, slow, done)
-        ok = torch.where(run, nok, ok)
-    return lx, ly, lz, ok
+
+def _refine_run(loop: tuple, active) -> torch.Tensor:
+    """The problems the adaptive loop's next pass refines."""
+    _, _, _, _, _, _, err, ok, done, tol = loop
+    run = ~done & ok & (err > tol)
+    if active is not None:
+        run = run & active
+    return run
+
+
+def _refine_pass(data, settings: Settings, ks: KKTState, loop: tuple, run, rx, ry, rz,
+                 mat32) -> tuple:
+    """One pass of the adaptive loop for the ``run`` problems."""
+    lx, ly, lz, ex, ey, ez, err, ok, done, tol = loop
+    dx, dy, dz = _backend_solve(data, ks, ex, ey, ez, mat32)
+    cx, cy, cz = lx + dx, ly + dy, lz + dz
+    nex, ney, nez, nerr = _refine_error(
+        data, ks, cx, cy, cz, rx, ry, rz, mat32
+    )
+    nok = torch.isfinite(nerr)
+    rate = err / nerr
+    slow = rate < settings.iterative_refinement_min_improvement_rate
+    # kkt_system.hpp:289-301: on slow improvement keep the better
+    # iterate and stop; otherwise accept and continue
+    accept = run & nok & (~slow | (rate > 1.0))
+    lx, ly, lz, ex, ey, ez, err = select(
+        accept, (cx, cy, cz, nex, ney, nez, nerr),
+        (lx, ly, lz, ex, ey, ez, err),
+    )
+    done = torch.where(run, slow, done)
+    ok = torch.where(run, nok, ok)
+    return lx, ly, lz, ex, ey, ez, err, ok, done, tol
 
 
 def solve(
@@ -531,10 +537,73 @@ def solve(
     system, recover the slack/dual directions (kkt_system.hpp:213-369).
     Returns (lhs, ok) with ok (B,)."""
     with annotate("piqp.kkt.solve"):
-        return _solve(data, settings, ks, rhs, mu, mat32, active)
+        ws = graphs.Names()
+        solve_segments(settings, lambda: (data, ks, rhs, mu, mat32, active), ws,
+                       graphs.eager, (), "lhs")
+        return ws.lhs, ws.solve_ok
 
 
-def _solve(data, settings, ks, rhs, mu, mat32, active):
+def solve_segments(settings: Settings, read, ws, run, key: tuple, out: str) -> None:
+    """``solve`` cut at its host decisions into straight-line segments, for
+    ``solver._solve_loop``: ``run(key, fn)`` runs each, ``read()`` gives
+    its inputs (data, ks, rhs, mu, mat32, active) from the buffers ``ws``,
+    and it puts the direction into ``ws.<out>`` and its finiteness (B,)
+    into ``ws.solve_ok``.
+
+    The backend solve + iterative refinement (kkt_system.hpp:254-308),
+    always on, against the unregularized target.  ``mu`` (B,): with
+    ``settings.refine_mu_factor > 0`` the exit tolerance is relaxed to
+    ``max(tol, refine_mu_factor * mu)`` (inexact IPM).  With ``mat32`` as
+    well and ``refine_static_passes >= 0`` (mixed phase A), exactly that
+    many correction passes run with no error norms: one segment.
+    Otherwise the adaptive loop runs: each problem stops on its own when
+    its error is below tolerance, stops improving or turns non-finite, and
+    the loop reads on the host whether any goes on before each pass.
+    ``active`` (B,) limits the loop to the problems whose result is
+    used."""
+
+    def static():
+        data, ks, rhs, _, mat32, _ = read()
+        bars = _condense(data, ks, rhs)
+        lx, ly, lz, ok = _refine_static(data, settings, ks, bars[2], rhs.y, bars[3], mat32)
+        ws.put(**{out: _recover(data, ks, rhs, bars, lx, ly, lz)}, solve_ok=ok)
+
+    def refined(loop, active) -> dict:
+        go = _refine_run(loop, active)
+        return dict(refine=loop, refine_run=go, refine_any=go.any())
+
+    def head():
+        data, ks, rhs, mu, mat32, active = read()
+        bars = _condense(data, ks, rhs)
+        loop = _refine_open(data, settings, ks, bars[2], rhs.y, bars[3], mu, mat32)
+        ws.put(bars=bars, **refined(loop, active))
+
+    def refine():
+        data, ks, rhs, _, mat32, active = read()
+        loop = _refine_pass(data, settings, ks, ws.refine, ws.refine_run, ws.bars[2], rhs.y,
+                            ws.bars[3], mat32)
+        ws.put(**refined(loop, active))
+
+    def tail():
+        data, ks, rhs, *_ = read()
+        lx, ly, lz, _, _, _, _, ok, _, _ = ws.refine
+        ws.put(**{out: _recover(data, ks, rhs, ws.bars, lx, ly, lz)}, solve_ok=ok)
+
+    _, _, _, mu, mat32, _ = read()
+    if _static_refinement(settings, mu, mat32):
+        run(("solve",) + key, static)
+        return
+    run(("solve.head",) + key, head)
+    for _ in range(settings.iterative_refinement_max_iter):
+        if not bool(ws.refine_any):
+            break
+        run(("solve.refine",) + key, refine)
+    run(("solve.tail",) + key, tail)
+
+
+def _condense(data, ks: KKTState, rhs: Vars) -> tuple:
+    """The condensed right-hand side (kkt_system.hpp:219-252): (rz_l_bar,
+    rz_u_bar, rhs_x_bar, rhs_z_bar)."""
     # condensed inequality RHS (kkt_system.hpp:219-234)
     rz_l_bar = torch.where(data.hl_mask, rhs.z_l - ks.z_l_inv * rhs.s_l, 0.0)
     rz_u_bar = torch.where(data.hu_mask, rhs.z_u - ks.z_u_inv * rhs.s_u, 0.0)
@@ -548,11 +617,13 @@ def _solve(data, settings, ks, rhs, mu, mat32, active):
         - data.x_b_scaling * ks.W_bl_inv * rb_l_bar
         + data.x_b_scaling * ks.W_bu_inv * rb_u_bar
     )
+    return rz_l_bar, rz_u_bar, rhs_x_bar, rhs_z_bar
 
-    lx, ly, lz, ok = _solve_condensed_refined(
-        data, settings, ks, rhs_x_bar, rhs.y, rhs_z_bar, mu, mat32, active
-    )
 
+def _recover(data, ks: KKTState, rhs: Vars, bars: tuple, lx, ly, lz) -> Vars:
+    """The slack and dual directions from the condensed solution
+    (kkt_system.hpp:310-366)."""
+    rz_l_bar, rz_u_bar = bars[0], bars[1]
     # inequality dual/slack recovery (kkt_system.hpp:310-345)
     r_sum = ks.W_l_inv * ks.W_u_inv * (rz_l_bar + rz_u_bar)
     lz_l = torch.where(data.hl_mask, -ks.z_reg * (r_sum + ks.W_l_inv * lz), 0.0)
@@ -576,8 +647,7 @@ def _solve(data, settings, ks, rhs, mu, mat32, active):
     ls_bu = torch.where(
         data.xu_mask, ks.z_bu_inv * (rhs.s_bu - ks.s_bu * lz_bu), 0.0
     )
-    lhs = Vars(
+    return Vars(
         x=lx, y=ly, z_l=lz_l, z_u=lz_u, z_bl=lz_bl, z_bu=lz_bu,
         s_l=ls_l, s_u=ls_u, s_bl=ls_bl, s_bu=ls_bu,
     )
-    return lhs, ok

@@ -210,6 +210,11 @@ apply_launches_by_dtype = {"float32": 0, "float64": 0}
 apply_launches_by_route = {"small": 0, "resident": 0, "split": 0}
 apply_factor_launches_by_route = {"resident": 0, "cluster": 0}
 apply_factor_launches_by_cluster = {c: 0 for c in range(2, MAX_CLUSTER + 1)}
+# every counter above, for code that counts launches the launchers do not
+# run (a CUDA graph's replay, ``graphs.py``)
+COUNTERS = (launches_by_dtype, launches_by_route, launches_by_cluster,
+            apply_launches_by_dtype, apply_launches_by_route,
+            apply_factor_launches_by_route, apply_factor_launches_by_cluster)
 
 
 def kernel_route(n: int, dtype: torch.dtype) -> str:

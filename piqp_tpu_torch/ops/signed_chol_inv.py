@@ -62,6 +62,8 @@ def cluster_size(n: int, dtype: torch.dtype) -> int:
 launches_by_dtype = {"float32": 0, "float64": 0}
 launches_by_route = {"resident": 0}
 launches_by_cluster = {c: 0 for c in range(1, MAX_CLUSTER + 1)}
+# every counter above (``graphs.py`` adds a replay's launches to them)
+COUNTERS = (launches_by_dtype, launches_by_route, launches_by_cluster)
 
 
 def kernel_route(n: int, dtype: torch.dtype) -> str:

@@ -18,7 +18,7 @@ import dataclasses
 
 import torch
 
-from . import kkt
+from . import graphs, kkt
 from .ops import matvec as ops
 from .types import (
     CERT_EQ_TOL,
@@ -37,6 +37,7 @@ from .types import (
     max0,
     min0,
     select,
+    tree_map,
 )
 from .utils.profiling import annotate
 
@@ -498,6 +499,76 @@ def calculate_step(v: Vars, step: Vars, data: QPData):
     return alpha_s, alpha_z
 
 
+def _factor_attempt(data, settings: Settings, P_diag, vars: Vars, rho, delta, ir,
+                    mixed: bool, pre):
+    """One factorization attempt: the KKT scalings and ``kkt.factor``;
+    returns (ks, ok)."""
+    ks = kkt.compute_scalings(data, settings, vars, rho, delta, ir, P_diag)
+    return kkt.factor(data, ks, mixed, pre, settings.factor_inverse)
+
+
+@dataclasses.dataclass
+class _Ladder:
+    """Where each problem stands on the numerics-recovery ladder."""
+
+    rho: torch.Tensor
+    delta: torch.Tensor
+    retries: torch.Tensor
+    reg_limit: torch.Tensor
+    ir: torch.Tensor
+    ok: torch.Tensor  # the current factor is finite
+    failed: torch.Tensor  # the ladder is exhausted
+
+
+def _ladder(info: Info, use_ir, ok) -> _Ladder:
+    """The ladder after the first attempt (at ``info``'s rho and delta)."""
+    return _Ladder(info.rho, info.delta, info.factor_retires, info.reg_limit, use_ir, ok,
+                   torch.zeros_like(ok))
+
+
+def _ladder_run(lad: _Ladder, active) -> torch.Tensor:
+    """The (active) problems whose factor still needs a rung."""
+    run = ~lad.ok & ~lad.failed
+    if active is not None:
+        run = run & active
+    return run
+
+
+def _ladder_climb(data, settings: Settings, P_diag, vars: Vars, mixed: bool, pre, ks,
+                  lad: _Ladder, run) -> tuple:
+    """One rung for the ``run`` problems: iterative refinement first, then
+    rho/delta x100 while retries remain, else failure; a refactorization
+    when some problem can still boost.  Returns (ks, ladder)."""
+    can_boost = lad.retries < settings.max_factor_retires
+    boost = run & lad.ir & can_boost
+    failed = torch.where(run, lad.ir & ~can_boost, lad.failed)
+    rho = torch.where(boost, lad.rho * 100.0, lad.rho)
+    delta = torch.where(boost, lad.delta * 100.0, lad.delta)
+    reg_limit = torch.where(
+        boost, torch.clamp(10.0 * lad.reg_limit, max=settings.eps_abs), lad.reg_limit
+    )
+    retries = torch.where(boost, lad.retries + 1, lad.retries)
+    ir = lad.ir | run
+    ok = lad.ok
+    refactor = run & ~failed
+    if bool(refactor.any()):
+        with annotate("piqp.kkt.factor"):
+            ks2, ok2 = _factor_attempt(data, settings, P_diag, vars, rho, delta, ir, mixed, pre)
+        ks, ok = select(refactor, (ks2, ok2), (ks, ok))
+    return ks, _Ladder(rho, delta, retries, reg_limit, ir, ok, failed)
+
+
+def _ladder_info(info: Info, lad: _Ladder) -> Info:
+    return dataclasses.replace(
+        info,
+        rho=lad.rho,
+        delta=lad.delta,
+        # reference resets the retry counter after success (solver.hpp:466,709)
+        factor_retires=torch.where(lad.failed, lad.retries, torch.zeros_like(lad.retries)),
+        reg_limit=lad.reg_limit,
+    )
+
+
 def factor_ladder(
     data: QPData, settings: Settings, P_diag, vars: Vars, info: Info, use_ir,
     mixed: bool = False, pre=None, active=None,
@@ -508,47 +579,17 @@ def factor_ladder(
     else gives up (-> NUMERICS).  Each problem climbs its own ladder; a
     refactorization runs only while some (active) problem needs one.
     Returns (ks, info, use_ir, failed)."""
-    inverse = settings.factor_inverse
-
-    def attempt(rho, delta, ir):
-        with annotate("piqp.kkt.factor"):
-            ks = kkt.compute_scalings(data, settings, vars, rho, delta, ir, P_diag)
-            return kkt.factor(data, ks, mixed, pre, inverse)
-
-    rho, delta = info.rho, info.delta
-    retries, reg_limit = info.factor_retires, info.reg_limit
-    ks, ok = attempt(rho, delta, use_ir)
-    ir = use_ir
-    failed = torch.zeros_like(ok)
+    with annotate("piqp.kkt.factor"):
+        ks, ok = _factor_attempt(
+            data, settings, P_diag, vars, info.rho, info.delta, use_ir, mixed, pre
+        )
+    lad = _ladder(info, use_ir, ok)
     while True:
-        run = ~ok & ~failed
-        if active is not None:
-            run = run & active
+        run = _ladder_run(lad, active)
         if not bool(run.any()):
             break
-        can_boost = retries < settings.max_factor_retires
-        boost = run & ir & can_boost
-        failed = torch.where(run, ir & ~can_boost, failed)
-        rho = torch.where(boost, rho * 100.0, rho)
-        delta = torch.where(boost, delta * 100.0, delta)
-        reg_limit = torch.where(
-            boost, torch.clamp(10.0 * reg_limit, max=settings.eps_abs), reg_limit
-        )
-        retries = torch.where(boost, retries + 1, retries)
-        ir = ir | run
-        refactor = run & ~failed
-        if bool(refactor.any()):
-            ks2, ok2 = attempt(rho, delta, ir)
-            ks, ok = select(refactor, (ks2, ok2), (ks, ok))
-    info = dataclasses.replace(
-        info,
-        rho=rho,
-        delta=delta,
-        # reference resets the retry counter after success (solver.hpp:466,709)
-        factor_retires=torch.where(failed, retries, torch.zeros_like(retries)),
-        reg_limit=reg_limit,
-    )
-    return ks, info, ir, failed
+        ks, lad = _ladder_climb(data, settings, P_diag, vars, mixed, pre, ks, lad, run)
+    return ks, _ladder_info(info, lad), lad.ir, lad.failed
 
 
 # ---------------------------------------------------------------------------
@@ -757,11 +798,9 @@ def _check_termination(data, sc, settings, st: IPMState) -> IPMState:
     return dataclasses.replace(st, res=res, info=dataclasses.replace(info, status=status))
 
 
-def _iteration(
-    data, sc, settings, has_cone, st: IPMState, P_diag, mixed: bool = False,
-    pre=None, active=None,
-) -> IPMState:
-    mat32 = pre.get("data32") if (mixed and pre) else None
+def _iteration_open(data, settings, has_cone, st: IPMState) -> tuple[Vars, Info]:
+    """An iteration's start: the iteration count, the boundary guard and
+    the regularization fine-tuning; returns (vars, info)."""
     info = dataclasses.replace(st.info, iter=st.info.iter + 1)
     vars = st.vars
     eps = torch.finfo(data.c.dtype).eps
@@ -806,49 +845,31 @@ def _iteration(
         no_primal_update=torch.where(finetune, 0, info.no_primal_update),
         no_dual_update=torch.where(finetune, 0, info.no_dual_update),
     )
+    return vars, info
 
-    # factorization with recovery ladder
-    ks, info, use_ir, failed = factor_ladder(
-        data, settings, P_diag, vars, info, st.use_ir, mixed, pre, active
-    )
-    st = dataclasses.replace(st, vars=vars, info=info, use_ir=use_ir)
-    numerics = dataclasses.replace(
+
+def _numerics(st: IPMState) -> IPMState:
+    return dataclasses.replace(
         st, info=dataclasses.replace(
-            info, status=torch.full_like(info.status, int(Status.NUMERICS))
+            st.info, status=torch.full_like(st.info.status, int(Status.NUMERICS))
         ),
     )
-    live = ~failed if active is None else active & ~failed
-    if not bool(live.any()):
-        return numerics
-
-    # recompute the regularized residuals with the (possibly boosted)
-    # rho/delta (solver.hpp:716-718)
-    res, info = residuals_r(data, sc, st.vars, st.prox, st.res_nr, st.res, st.info)
-    st = dataclasses.replace(st, res=res, info=info)
-    if has_cone:
-        st = _centering_step(data, sc, settings, st, ks, mat32, live)
-    else:
-        st = _equality_only_step(data, sc, settings, st, ks, mat32, live)
-    return select(failed, numerics, st)
 
 
-def _centering_step(
-    data, sc, settings, st: IPMState, ks, mat32=None, active=None
-) -> IPMState:
-    """Mehrotra predictor-corrector step (solver.hpp:720-829)."""
-    vars, res, info = st.vars, st.res, st.info
-    mu = info.mu
-
-    # ---- predictor (solver.hpp:722-737)
-    res = dataclasses.replace(
+def _predictor_rhs(vars: Vars, res: Vars) -> Vars:
+    """The predictor's right-hand side (solver.hpp:722-737)."""
+    return dataclasses.replace(
         res,
         s_l=-vars.s_l * vars.z_l,
         s_u=-vars.s_u * vars.z_u,
         s_bl=-vars.s_bl * vars.z_bl,
         s_bu=-vars.s_bu * vars.z_bu,
     )
-    step, _ = kkt.solve(data, settings, ks, res, mu, mat32, active)
 
+
+def _corrector_rhs(data, settings, vars: Vars, res: Vars, step: Vars, mu) -> tuple:
+    """The centering parameter from the predictor ``step`` and the
+    corrector's right-hand side (solver.hpp:747-769); (sigma, res)."""
     alpha_s, alpha_z = calculate_step(vars, step, data)
     a_s = _col(alpha_s * settings.tau)
     a_z = _col(alpha_z * settings.tau)
@@ -870,42 +891,55 @@ def _centering_step(
         s_bl=res.s_bl + torch.where(data.xl_mask, -step.s_bl * step.z_bl + sm, 0.0),
         s_bu=res.s_bu + torch.where(data.xu_mask, -step.s_bu * step.z_bu + sm, 0.0),
     )
-    step, _ = kkt.solve(data, settings, ks, res, mu, mat32, active)
-    alpha_s, alpha_z = calculate_step(vars, step, data)
+    return sigma, res
 
-    # ---- Gondzio multiple centrality correctors (opt-in; no reference
-    # analog): a round is kept only where it lengthens the step
-    if settings.centrality_correctors > 0:
-        _DA, _BMIN, _BMAX, _GAMMA = 0.1, 0.1, 10.0, 0.01
-        mu_g = _col(sigma * mu)
-        for _ in range(settings.centrality_correctors):
-            a_s_t = _col(torch.clamp(alpha_s + _DA, max=1.0))
-            a_z_t = _col(torch.clamp(alpha_z + _DA, max=1.0))
 
-            def corr(s, z, ds, dz, mask):
-                v = (s + a_s_t * ds) * (z + a_z_t * dz)
-                t = torch.minimum(torch.maximum(v, _BMIN * mu_g), _BMAX * mu_g)
-                return torch.where(mask, t - v, 0.0)
+# Gondzio's multiple centrality correctors (opt-in; no reference analog)
+_DA, _BMIN, _BMAX, _GAMMA = 0.1, 0.1, 10.0, 0.01
 
-            res_t = dataclasses.replace(
-                res,
-                s_l=res.s_l + corr(vars.s_l, vars.z_l, step.s_l, step.z_l, data.hl_mask),
-                s_u=res.s_u + corr(vars.s_u, vars.z_u, step.s_u, step.z_u, data.hu_mask),
-                s_bl=res.s_bl + corr(vars.s_bl, vars.z_bl, step.s_bl, step.z_bl,
-                                     data.xl_mask),
-                s_bu=res.s_bu + corr(vars.s_bu, vars.z_bu, step.s_bu, step.z_bu,
-                                     data.xu_mask),
-            )
-            step_t, _ = kkt.solve(data, settings, ks, res_t, mu, mat32, active)
-            a_s2, a_z2 = calculate_step(vars, step_t, data)
-            accept = (
-                (a_s2 >= alpha_s) & (a_z2 >= alpha_z)
-                & (a_s2 + a_z2 > alpha_s + alpha_z + _GAMMA * _DA)
-            )
-            step, res, alpha_s, alpha_z = select(
-                accept, (step_t, res_t, a_s2, a_z2), (step, res, alpha_s, alpha_z)
-            )
 
+def _gondzio_rhs(data, vars: Vars, res: Vars, step: Vars, alpha_s, alpha_z, sigma,
+                 mu) -> Vars:
+    """A corrector round's trial right-hand side, aimed at a step
+    ``_DA`` longer."""
+    mu_g = _col(sigma * mu)
+    a_s_t = _col(torch.clamp(alpha_s + _DA, max=1.0))
+    a_z_t = _col(torch.clamp(alpha_z + _DA, max=1.0))
+
+    def corr(s, z, ds, dz, mask):
+        v = (s + a_s_t * ds) * (z + a_z_t * dz)
+        t = torch.minimum(torch.maximum(v, _BMIN * mu_g), _BMAX * mu_g)
+        return torch.where(mask, t - v, 0.0)
+
+    return dataclasses.replace(
+        res,
+        s_l=res.s_l + corr(vars.s_l, vars.z_l, step.s_l, step.z_l, data.hl_mask),
+        s_u=res.s_u + corr(vars.s_u, vars.z_u, step.s_u, step.z_u, data.hu_mask),
+        s_bl=res.s_bl + corr(vars.s_bl, vars.z_bl, step.s_bl, step.z_bl,
+                             data.xl_mask),
+        s_bu=res.s_bu + corr(vars.s_bu, vars.z_bu, step.s_bu, step.z_bu,
+                             data.xu_mask),
+    )
+
+
+def _gondzio_accept(data, vars: Vars, step, res, alpha_s, alpha_z, step_t, res_t):
+    """Keep a round's trial step only where it lengthens the step; returns
+    (step, res, alpha_s, alpha_z)."""
+    a_s2, a_z2 = calculate_step(vars, step_t, data)
+    accept = (
+        (a_s2 >= alpha_s) & (a_z2 >= alpha_z)
+        & (a_s2 + a_z2 > alpha_s + alpha_z + _GAMMA * _DA)
+    )
+    return select(accept, (step_t, res_t, a_s2, a_z2), (step, res, alpha_s, alpha_z))
+
+
+def _centering_update(
+    data, sc, settings, st: IPMState, res: Vars, step: Vars, alpha_s, alpha_z, sigma,
+    mat32=None,
+) -> IPMState:
+    """The step, mu, the residuals and the proximal parameter updates
+    (solver.hpp:778-829); ``res`` is the corrector's right-hand side."""
+    vars, info = st.vars, st.info
     primal_step = alpha_s * settings.tau
     dual_step = alpha_z * settings.tau
     ps, ds = _col(primal_step), _col(dual_step)
@@ -989,14 +1023,10 @@ def _centering_step(
     return dataclasses.replace(st, vars=vars, prox=prox, res_nr=res_nr, res=res, info=info)
 
 
-def _equality_only_step(
-    data, sc, settings, st: IPMState, ks, mat32=None, active=None
-) -> IPMState:
-    """Full-step path when there are no inequalities or bounds
-    (solver.hpp:831-877)."""
+def _equality_update(data, sc, settings, st: IPMState, step: Vars, mat32=None) -> IPMState:
+    """The full step, the residuals and the proximal parameter updates of
+    the equality-only path."""
     vars, res, info = st.vars, st.res, st.info
-
-    step, _ = kkt.solve(data, settings, ks, res, None, mat32, active)
     vars = dataclasses.replace(vars, x=vars.x + step.x, y=vars.y + step.y)
     info = dataclasses.replace(
         info,
@@ -1097,79 +1127,245 @@ def _print_iterations(st: IPMState, active: torch.Tensor) -> None:
         )
 
 
+def _cond(settings: Settings, st: IPMState) -> torch.Tensor:
+    return (st.info.status == _RUNNING) & (st.info.iter < settings.max_iter)
+
+
+def _in_phase_a(settings: Settings, st: IPMState) -> torch.Tensor:
+    in_a = st.info.mu > settings.mixed_precision_mu_switch
+    if settings.mixed_phase_a_patience > 0:
+        # stall exit (Settings.mixed_phase_a_patience): a plateaued
+        # problem gains nothing from more float32 iterations
+        stalled = torch.maximum(
+            st.info.no_primal_update, st.info.no_dual_update
+        ) >= settings.mixed_phase_a_patience
+        backstop = st.info.iter >= settings.max_iter // 2
+        in_a = in_a & ~(stalled | backstop)
+    return in_a
+
+
+def _running(settings: Settings, st: IPMState, active, phase_a: bool) -> torch.Tensor:
+    """The problems of ``active`` whose loop goes on in this phase."""
+    act = active & _cond(settings, st)
+    return act & _in_phase_a(settings, st) if phase_a else act
+
+
 def solve_scaled(
     data: QPData, sc: Scaling, settings: Settings, has_cone: bool,
     warm: BasicVars | None = None,
 ) -> Result:
     """Run the IPM on already-equilibrated batched data; returns the
     *unscaled* result (solver.hpp:109-112).  ``warm``: optional user-space
-    (unscaled) iterates (x, y, z_*) of a nearby problem, per problem."""
+    (unscaled) iterates (x, y, z_*) of a nearby problem, per problem.
+
+    Where ``graphs.engages`` (condensed dense data on a CUDA device) and
+    the device has room for the cache entry, the loop's segments run as
+    CUDA graphs on persistent buffers, with the same decisions and
+    arithmetic; elsewhere every kernel is launched from Python."""
+    if graphs.engages(data, settings):
+        key = graphs.key(data, settings, has_cone)
+        with torch.cuda.device(data.c.device), graphs.CACHE.entry(
+                key, graphs.room(data)) as entry:
+            if entry is not None:
+                return _solve_loop(data, sc, settings, has_cone, warm, entry.slots,
+                                   entry.segments.run)
+    return _solve_eager(data, sc, settings, has_cone, warm)
+
+
+def _solve_eager(
+    data: QPData, sc: Scaling, settings: Settings, has_cone: bool,
+    warm: BasicVars | None = None,
+) -> Result:
+    """``solve_scaled``'s loop with every kernel launched from Python."""
+    return _solve_loop(data, sc, settings, has_cone, warm, graphs.Names(), graphs.eager)
+
+
+def _pick(mask, new, old):
+    """``select`` that keeps a tensor both sides share as it is: the same
+    values, one kernel fewer."""
+    def pick(a, b):
+        return a if a is b else select(mask, a, b)
+
+    return tree_map(pick, new, old)
+
+
+def _solve_loop(
+    data: QPData, sc: Scaling, settings: Settings, has_cone: bool,
+    warm: BasicVars | None, ws, run,
+) -> Result:
+    """The IPM loop, cut at its host decisions (each ``bool(... .any())``)
+    and at its spans into straight-line segments (``graphs.py``).
+    ``run(key, fn)`` runs a segment; a segment reads its inputs from the
+    buffers ``ws`` and ends by putting its outputs there (``ws.put``), so
+    whatever order the decisions run the segments in, none overwrites
+    what an earlier one still needs.  Init and the result, and the rare
+    branches (a ladder rung, a failed factor, the certificate checks),
+    run outside the segments on the same buffers.
+
+    A trip is the exit test, the factorization with its recovery ladder,
+    then Mehrotra's predictor-corrector step (solver.hpp:720-829) with
+    the opt-in Gondzio correctors, or the full step of the equality-only
+    path (solver.hpp:831-877).  Mixed precision runs two phases: float32
+    factors while the barrier is loose, solver-dtype factors for the
+    endgame; a problem that left phase A waits until every active problem
+    has left it."""
     mixed = settings.mixed_precision
     pre = kkt.precompute(data, mixed)
     P_diag = ops.P_diag(data)
     state, _ = _init_state(data, sc, settings, has_cone, P_diag, mixed, pre, warm)
+    ws.put(data=data, sc=sc, pre=pre, P_diag=P_diag, st=state)
 
-    def cond(st):
-        return (st.info.status == _RUNNING) & (st.info.iter < settings.max_iter)
+    def running(st, phase_a) -> dict:
+        act = _running(settings, st, ws.outer, phase_a)
+        return dict(act=act, act_any=act.any())
 
-    def step(st, active, phase_a):
-        """One trip of the loop body for the ``active`` problems."""
+    def trip(phase_a):
+        """One trip of the loop for the ``ws.act`` problems, and the exit
+        test after it."""
+        ks_slot = "ks32" if phase_a else "ks"
+
+        def mat32():
+            return ws.pre.get("data32") if (phase_a and ws.pre) else None
+
+        def opening():
+            new = _check_termination(ws.data, ws.sc, settings, ws.st)
+            st = _pick(ws.act, new, ws.st)
+            go = ws.act & (st.info.status == _RUNNING)
+            ws.put(st=st, go=go, go_any=go.any())
+
+        def iteration():
+            vars, info = _iteration_open(ws.data, settings, has_cone, ws.st)
+            ws.put(it_vars=vars, it_info=info)
+
+        def put_ladder(ks, lad):
+            go = _ladder_run(lad, ws.go)
+            live = ws.go & ~lad.failed
+            ws.put(**{ks_slot: ks}, lad=lad, run=go, run_any=go.any(), live=live,
+                   live_any=live.any())
+
+        def factor():
+            info, use_ir = ws.it_info, ws.st.use_ir
+            ks, ok = _factor_attempt(ws.data, settings, ws.P_diag, ws.it_vars, info.rho,
+                                     info.delta, use_ir, phase_a, ws.pre)
+            put_ladder(ks, _ladder(info, use_ir, ok))
+
+        def laddered() -> IPMState:
+            return dataclasses.replace(ws.st, vars=ws.it_vars, use_ir=ws.lad.ir,
+                                       info=_ladder_info(ws.it_info, ws.lad))
+
+        def residuals():
+            st = laddered()
+            res, info = residuals_r(ws.data, ws.sc, st.vars, st.prox, st.res_nr, st.res,
+                                    st.info)
+            rhs = dict(rhs=_predictor_rhs(st.vars, res)) if has_cone else {}
+            ws.put(res=res, info_r=info, **rhs)
+
+        def kkt_solve(rhs: str, out: str):
+            """``kkt.solve`` of ``ws.<rhs>`` into ``ws.<out>``."""
+            def read():
+                mu = ws.info_r.mu if has_cone else None
+                return ws.data, getattr(ws, ks_slot), getattr(ws, rhs), mu, mat32(), ws.live
+
+            with annotate("piqp.kkt.solve"):
+                kkt.solve_segments(settings, read, ws, run, (phase_a, rhs, out), out)
+
+        def corrector():
+            sigma, res = _corrector_rhs(ws.data, settings, ws.it_vars, ws.rhs, ws.step,
+                                        ws.info_r.mu)
+            ws.put(sigma=sigma, rhs=res)
+
+        def alpha():
+            ws.put(alpha=calculate_step(ws.it_vars, ws.step, ws.data))
+
+        def gondzio():
+            ws.put(rhs_t=_gondzio_rhs(ws.data, ws.it_vars, ws.rhs, ws.step, *ws.alpha,
+                                      ws.sigma, ws.info_r.mu))
+
+        def accept():
+            step, res, a_s, a_z = _gondzio_accept(ws.data, ws.it_vars, ws.step, ws.rhs,
+                                                  *ws.alpha, ws.step_t, ws.rhs_t)
+            ws.put(step=step, rhs=res, alpha=(a_s, a_z))
+
+        def update():
+            st = dataclasses.replace(laddered(), res=ws.res, info=ws.info_r)
+            if not has_cone:
+                new = _equality_update(ws.data, ws.sc, settings, st, ws.step, mat32())
+            else:
+                a_s, a_z = (ws.alpha if settings.centrality_correctors
+                            else calculate_step(ws.it_vars, ws.step, ws.data))
+                new = _centering_update(ws.data, ws.sc, settings, st, ws.rhs, ws.step,
+                                        a_s, a_z, ws.sigma, mat32())
+            new = _pick(ws.go, _pick(ws.lad.failed, _numerics(laddered()), new), ws.st)
+            ws.put(st=new, **running(new, phase_a))
+
+        def exit_test():
+            run(("running", phase_a), lambda: ws.put(**running(ws.st, phase_a)))
+
         if settings.verbose:
-            _print_iterations(st, active)
-        st = select(active, _check_termination(data, sc, settings, st), st)
-        go = active & (st.info.status == _RUNNING)
-        if bool(go.any()):
-            st = select(go, _iteration(
-                data, sc, settings, has_cone, st, P_diag, phase_a, pre, go
-            ), st)
-        return st
+            _print_iterations(ws.st, ws.act)
+        run(("trip", phase_a), opening)
+        if not bool(ws.go_any):
+            exit_test()
+            return
+        run(("iteration", phase_a), iteration)
+        # factorization with its recovery ladder (rungs eager)
+        with annotate("piqp.kkt.factor"):
+            run(("factor", phase_a), factor)
+        while bool(ws.run_any):
+            put_ladder(*_ladder_climb(ws.data, settings, ws.P_diag, ws.it_vars, phase_a,
+                                      ws.pre, getattr(ws, ks_slot), ws.lad, ws.run))
+        if not bool(ws.live_any):
+            ws.put(st=select(ws.go, _numerics(laddered()), ws.st))
+            exit_test()
+            return
+        run(("residuals", phase_a), residuals)
+        if not has_cone:
+            kkt_solve("res", "step")
+        else:
+            # predictor, corrector, then the Gondzio rounds, each kept only
+            # where it lengthens the step
+            kkt_solve("rhs", "step")
+            run(("corrector", phase_a), corrector)
+            kkt_solve("rhs", "step")
+            if settings.centrality_correctors:
+                run(("alpha", phase_a), alpha)
+            for _ in range(settings.centrality_correctors):
+                run(("gondzio", phase_a), gondzio)
+                kkt_solve("rhs_t", "step_t")
+                run(("accept", phase_a), accept)
+        run(("update", phase_a), update)
 
-    def loop(st, active, phase_a):
-        def running(s):
-            act = active & cond(s)
-            return act & in_phase_a(s) if phase_a else act
-
-        act = running(st)
-        go = bool(act.any())
+    def loop(phase_a):
+        run(("running", phase_a), lambda: ws.put(**running(ws.st, phase_a)))
+        go = bool(ws.act_any)
         while go:
             # a trip: the step, then the exit test it leads to
             with annotate("piqp.ipm.iter"):
-                st = step(st, act, phase_a)
-                act = running(st)
-                go = bool(act.any())
-        return st
+                trip(phase_a)
+                go = bool(ws.act_any)
 
-    def in_phase_a(s):
-        in_a = s.info.mu > settings.mixed_precision_mu_switch
-        if settings.mixed_phase_a_patience > 0:
-            # stall exit (Settings.mixed_phase_a_patience): a plateaued
-            # problem gains nothing from more float32 iterations
-            stalled = torch.maximum(
-                s.info.no_primal_update, s.info.no_dual_update
-            ) >= settings.mixed_phase_a_patience
-            backstop = s.info.iter >= settings.max_iter // 2
-            in_a = in_a & ~(stalled | backstop)
-        return in_a
-
-    def run_ipm(st, active):
-        # two-phase mixed precision: float32 factors while the barrier is
-        # loose, solver-dtype factors for the endgame; a problem that left
-        # phase A waits until every active problem has left it
+    def run_ipm(outer):
+        ws.put(outer=outer)
         if mixed:
-            st = loop(st, active, True)
-        return loop(st, active, False)
+            loop(True)
+        loop(False)
 
     if settings.verify_certificates:
         # outer loop: re-enter the IPM after a rejected certificate
         while True:
-            outer = cond(state)
+            outer = _cond(settings, ws.st)
             if not bool(outer.any()):
                 break
-            st = _validate_exit(data, sc, settings, run_ipm(state, outer))
-            state = select(outer, st, state)
+            run_ipm(outer)
+            ws.put(st=select(outer, _validate_exit(ws.data, ws.sc, settings, ws.st), ws.st))
     else:
-        state = run_ipm(state, cond(state))
+        run_ipm(_cond(settings, ws.st))
+    # the result holds no buffer of ``ws``: the next solve overwrites them
+    state = dataclasses.replace(ws.st, info=tree_map(torch.clone, ws.st.info))
+    return _result(data, sc, settings, state)
 
+
+def _result(data, sc, settings: Settings, state: IPMState) -> Result:
     info = state.info
     info = dataclasses.replace(
         info,

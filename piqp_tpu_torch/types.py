@@ -220,17 +220,19 @@ def resolve_device(device) -> torch.device:
 
 
 def tree_map(fn, value, *rest):
-    """``fn`` over every tensor of a dataclass (or nested tuple) ``value``
-    and the matching tensors of ``rest`` (values of the same structure).
-    None stays None.  Fields marked ``metadata={"static": True}`` (a
-    process group, a chunk count) are not visited: ``dataclasses.replace``
-    carries them over from ``value``."""
+    """``fn`` over every tensor of a dataclass (or nested tuple or dict)
+    ``value`` and the matching tensors of ``rest`` (values of the same
+    structure).  None stays None.  Fields marked
+    ``metadata={"static": True}`` (a process group, a chunk count) are not
+    visited: ``dataclasses.replace`` carries them over from ``value``."""
     if isinstance(value, torch.Tensor):
         return fn(value, *rest)
     if value is None:
         return None
     if isinstance(value, tuple):
         return tuple(tree_map(fn, *parts) for parts in zip(value, *rest))
+    if isinstance(value, dict):
+        return {k: tree_map(fn, value[k], *(r[k] for r in rest)) for k in sorted(value)}
     if dataclasses.is_dataclass(value):
         return dataclasses.replace(value, **{
             f.name: tree_map(fn, getattr(value, f.name), *(getattr(r, f.name) for r in rest))

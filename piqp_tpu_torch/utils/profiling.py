@@ -28,6 +28,9 @@ The program's regions are named ``piqp.<layer>[.<part>]``:
 - ``piqp.kkt.factor``: one factorization attempt of
   ``solver.factor_ladder`` (scalings and ``kkt.factor``), retries included;
 - ``piqp.kkt.solve``: ``kkt.solve``, iterative refinement included;
+- ``piqp.ipm.graph``: one replay of a CUDA graph of a segment of the
+  loop (``graphs.Segments.run``), inside the trip's and the KKT's spans
+  that the segment's eager code sits in;
 - ``piqp.horizon.factor``, ``piqp.horizon.solve``: the horizon-sharded
   factorization and condensed solve (``parallel/horizon.py``).
 
