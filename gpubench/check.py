@@ -10,7 +10,8 @@ Three numbers, each against the limit the configuration file states
   reference's solution of the same round's problem;
 - ``primal_viol``: on every problem of every round, the widest scaled
   primal violation of x on the original data (equalities, both sides of
-  the inequalities, the bounds), as ``reference.optimality`` scales it.
+  the inequalities, the bounds), as ``reference.optimality`` scales it,
+  read in blocks of ``check.block`` problems.
 
 ``ref_kkt`` guards the reference itself: its worst KKT violation on the
 sampled problems (``reference.optimality``), held to ``REF_KKT_LIMIT``.
@@ -49,6 +50,17 @@ def primal_violation(dense: dict, xs: np.ndarray, device) -> float:
         scale = x.abs().amax(-1).clamp(min=1.0)
         worst = max(worst, float(torch.nan_to_num(per / scale, nan=np.inf).max()))
     return worst
+
+
+def blocked_primal_violation(config: dict, problems: list, xs: np.ndarray, device) -> float:
+    """``primal_violation`` of the solutions xs (rounds, B, n) of the host
+    problems, on the dense form of ``check.block`` problems at a time: the
+    reading is a maximum over problems, so the blocks change nothing but
+    the memory it takes."""
+    block = config["check"]["block"]
+    return max(primal_violation(pb.dense_form(config, problems[lo:lo + block], with_cost=False),
+                                xs[:, lo:lo + block], device)
+               for lo in range(0, len(problems), block))
 
 
 def x_gaps(x: np.ndarray, x_ref: np.ndarray) -> np.ndarray:
@@ -97,9 +109,8 @@ def compare(config: dict, traffic: dict, seed: int, window: dict, device) -> dic
     for k, probs in enumerate(batches):
         rounds = [i for i in range(len(window["xs"])) if batch_of(traffic, i + 1) == k]
         if rounds:
-            worst = max(worst, primal_violation(pb.dense_form(config, probs, with_cost=False),
-                                                np.stack([window["xs"][i] for i in rounds]),
-                                                device))
+            worst = max(worst, blocked_primal_violation(
+                config, probs, np.stack([window["xs"][i] for i in rounds]), device))
     numbers["primal_viol"] = (worst, limits["primal_viol"])
     numbers["ref_kkt"] = (float(max(k for _, k in refs)), REF_KKT_LIMIT)
     return numbers

@@ -85,10 +85,33 @@ def settings_of(config: dict):
 
 
 def _counters() -> dict:
-    from piqp_tpu_torch.ops import chol_inv
+    """The program's launch counters: each module-level dict of every
+    module of ``piqp_tpu_torch.ops`` whose name holds ``launches_by``, under
+    ``"<module>.<name>"`` (``"signed_chol_inv.launches_by_dtype"``), and
+    ``chol_inv``'s whose names end in ``launches_by_dtype`` or
+    ``launches_by_route`` also under their bare names, as
+    ``k1_roofline.warm`` reads them."""
+    import importlib
+    import pkgutil
 
-    return {k: dict(v) for k, v in vars(chol_inv).items()
-            if k.endswith(("launches_by_dtype", "launches_by_route")) and isinstance(v, dict)}
+    from piqp_tpu_torch import ops
+
+    out = {}
+    for info in pkgutil.iter_modules(ops.__path__):
+        module = importlib.import_module(f"{ops.__name__}.{info.name}")
+        out.update({f"{info.name}.{k}": dict(v) for k, v in vars(module).items()
+                    if "launches_by" in k and isinstance(v, dict)})
+    bare = {k.removeprefix("chol_inv."): v for k, v in out.items()
+            if k.startswith("chol_inv.") and k.endswith(("launches_by_dtype", "launches_by_route"))}
+    return {**out, **bare}
+
+
+def window_counts(before: dict, after: dict) -> dict:
+    """Each counter's launches between two ``_counters()`` readings; a key
+    that appears in between (a counter keyed by launch shape) counts from
+    0."""
+    return {k: {d: v - before.get(k, {}).get(d, 0) for d, v in c.items()}
+            for k, c in after.items()}
 
 
 def forbidden_modules() -> list:
@@ -164,7 +187,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, t0: float, device: st
                 if cuda:
                     torch.cuda.synchronize()
         after = _counters()
-        out.counters = {k: {d: after[k][d] - before[k][d] for d in after[k]} for k in after}
+        out.counters = window_counts(before, after)
     while time.perf_counter() - start < seconds:
         r += 1
         one_round(r, keep=True)

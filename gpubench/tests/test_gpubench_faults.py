@@ -17,6 +17,7 @@ import torch
 
 import piqp_tpu_torch
 from gpubench import harness, reference
+from piqp_tpu_torch import multistage
 
 CELLS = [w["name"] for w in json.loads((harness.ROOT / "BENCHMARK.json").read_text())["workloads"]]
 SEED = 2147483901
@@ -55,7 +56,11 @@ def altered(data, settings, warm=None):
 
 
 def _dense_of(data) -> dict:
-    """The problems of a batch as ``problems.dense_form`` gives them."""
+    """The problems of a batch as ``problems.dense_form`` gives them; stage
+    data (``multistage.StageQPData``) by way of its dense equivalent."""
+    if isinstance(data, multistage.StageQPData):
+        data = multistage.to_dense(data)
+
     def bound(v, mask, inf):
         return torch.where(mask, v, inf).numpy()
 

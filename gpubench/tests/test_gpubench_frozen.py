@@ -40,3 +40,35 @@ def test_factor_arithmetic_is_chip_smokes():
     flops = 1024 * 2 * 128 ** 3 / 3
     assert roofline.factor_s(1024, 128, "float32") * 1e3 == pytest.approx(
         chip_smoke._bound("float32", nbytes, flops)[0])
+
+
+K2_TIMED = [chip_smoke.K2_FLEET, *chip_smoke.K2_MS48, chip_smoke.K2_SPLIT_TIMED]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape", K2_TIMED, ids=lambda s: "N%d_n%d_r%d" % s)
+def test_apply_arithmetic_is_chip_smokes(shape, dtype):
+    """K2's bound, ``chip_smoke.py``'s at the fleets' timed shapes: the
+    same bytes and flops; float64 flops at the DMMA rate, as there."""
+    N, n, r = shape
+    size = {"float32": 4, "float64": 8}[dtype]
+    nbytes = (chip_smoke._factor_elements(N, n) + 2 * N * n * r) * size
+    assert roofline.apply_elements(N, n, r) * size == nbytes
+    flops = N * (2 * n ** 3 / 3 + 2 * n * n * r)
+    assert roofline.apply_s(N, n, r, dtype) * 1e3 == pytest.approx(
+        chip_smoke._bound(dtype, nbytes, flops)[0], rel=1e-12)
+
+
+def test_apply_arithmetic_binds_as_documented():
+    # bytes bind the small and resident routes' timed shapes; the split
+    # shape is bound by operations in float32 and by bytes in float64
+    for N, n, r in [chip_smoke.K2_FLEET, chip_smoke.K2_D23, *chip_smoke.K2_MS48,
+                    *chip_smoke.K2_WIDE_TIMED]:
+        for dtype in ("float32", "float64"):
+            assert roofline.apply_s(N, n, r, dtype) == pytest.approx(
+                roofline.apply_elements(N, n, r) * roofline.ITEMSIZE[dtype] / 3.35e12)
+    N, n, r = chip_smoke.K2_SPLIT_TIMED
+    assert roofline.apply_s(N, n, r, "float32") == pytest.approx(
+        N * (2 * n ** 3 / 3 + 2 * n * n * r) / 67e12)
+    assert roofline.apply_s(N, n, r, "float64") == pytest.approx(
+        roofline.apply_elements(N, n, r) * 8 / 3.35e12)

@@ -1,9 +1,13 @@
 """Every metric reader and the trace reduction on numbers made by hand."""
 
+import json
+
 import pytest
 
 from gpubench import harness, roofline
+from gpubench.tests import test_gpubench_span_metrics as span_metrics
 from gpubench.trace import WINDOW, Event, Trace
+from piqp_tpu_torch.ops import chol_inv, signed_chol_inv
 
 MS = 1_000_000  # ns
 
@@ -93,16 +97,12 @@ def test_host_clock_metrics():
 
 
 def test_every_metric_of_the_benchmark_has_a_reader():
-    import json
-
     bench = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
     for m in bench["end_to_end"] + bench["per_layer"]:
         assert callable(harness.metric_reader(m["name"]))
 
 
 def test_every_part_of_every_cell_is_found_by_name():
-    import json
-
     from gpubench import byname, mixes, problems as pb
 
     bench = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
@@ -114,3 +114,62 @@ def test_every_part_of_every_cell_is_found_by_name():
         mode = mixes.mode(traffic)
         assert callable(mode.Round) and callable(mode.batch_of) and callable(mode.problems)
         assert "sizes" in config["tiny"] and "batch" in config["tiny"]
+
+
+# what the readers of the benchmark's commit before stage configurations
+# were taken in (whose harness read ``chol_inv``'s counters alone) gave on
+# ``every_metric_run``
+BEFORE_STAGES = {
+    "round_ms": 300.0, "round_ms_p90": 990.0, "solves_per_s": 3413.3333333333335,
+    "setup_s": 12.5, "prepare_ms.cold": 300.00000000000006, "lockstep_iters.warm": 5.3,
+    "lockstep_iters.cold": 5.3, "launches_per_round.warm": 1.0,
+    "k1_roofline.warm": 2.5079746865671644, "device_idle.warm": 88.0,
+    "device_idle.cold": 88.0, "ipm_idle_ms.warm": 20.0,
+    "syncs_per_iter.warm": 1.3333333333333333, "launches_per_iter.warm": 2.0,
+    "kkt_factor_ms.warm": 4.5, "kkt_solve_ms.warm": 6.5, "ruiz_ms.warm": 5.0,
+    "entry_canonical_ms.cold": 1.0, "entry_copy_ms.cold": 0.5,
+    "graph_trip_share.warm": 66.66666666666667,
+}
+
+
+def every_metric_run(monkeypatch):
+    """One run that every reader finds something in: the span metrics'
+    hand trace with two graph replays, host-clock numbers, and the window's
+    counters as the harness takes them (K1: 3 float32 and 1 float64
+    launches; K2 and K3 launches that no reader counts)."""
+    before = harness._counters()
+    for d, k in ((chol_inv.launches_by_dtype, "float32"), (chol_inv.launches_by_dtype, "float64"),
+                 (chol_inv.apply_launches_by_route, "small"),
+                 (signed_chol_inv.launches_by_dtype, "float64")):
+        monkeypatch.setitem(d, k, d[k])
+    chol_inv.launches_by_dtype["float32"] += 3
+    chol_inv.launches_by_dtype["float64"] += 1
+    chol_inv.apply_launches_by_route["small"] += 2
+    signed_chol_inv.launches_by_dtype["float64"] += 5
+    counters = harness.window_counts(before, harness._counters())
+    events = span_metrics.hand_trace() + [span_metrics.span("piqp.ipm.graph", 22, 30),
+                                          span_metrics.span("piqp.ipm.graph", 71, 72)]
+    return run_of(dense_config(), setup_s=12.5, window_s=3.0,
+                  round_s=[0.1 * (i + 1) for i in range(10)], iters=[5] * 9 + [8],
+                  prepare_s=[0.2, 0.4], trace=Trace(events, rounds=2), counters=counters)
+
+
+def test_every_reader_reads_as_before_stage_configurations(monkeypatch):
+    run = every_metric_run(monkeypatch)
+    assert run.counters["launches_by_dtype"] == {"float32": 3, "float64": 1}
+    assert run.counters["signed_chol_inv.launches_by_dtype"] == {"float32": 0, "float64": 5}
+    bench = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
+    assert {m["name"]: read(m["name"], run)
+            for m in bench["end_to_end"] + bench["per_layer"]} == BEFORE_STAGES
+
+
+def test_window_counts_a_key_that_appears_in_the_window(monkeypatch):
+    monkeypatch.setattr(chol_inv, "apply_launches_by_shape", {(64, 8, 20): 2}, raising=False)
+    before = harness._counters()
+    chol_inv.apply_launches_by_shape[(64, 8, 20)] += 1
+    chol_inv.apply_launches_by_shape[(32, 8, 20)] = 4
+    monkeypatch.setattr(signed_chol_inv, "launches_by_shape", {(256, 256): 1}, raising=False)
+    counts = harness.window_counts(before, harness._counters())
+    assert counts["chol_inv.apply_launches_by_shape"] == {(64, 8, 20): 1, (32, 8, 20): 4}
+    assert counts["signed_chol_inv.launches_by_shape"] == {(256, 256): 1}
+    assert "apply_launches_by_shape" not in counts
