@@ -47,6 +47,7 @@ from .types import (
 from .api import DenseSolver, has_cone, prepare_data, solve_dense, solve_prepared
 from .batch import (
     prepare_batch,
+    prepare_stage_batch,
     solve_batch,
     solve_batch_compact,
     solve_batch_sqp,
@@ -77,6 +78,7 @@ __all__ = [
     "has_cone",
     "prepare_data",
     "prepare_batch",
+    "prepare_stage_batch",
     "solve_dense",
     "solve_prepared",
     "solve_batch",

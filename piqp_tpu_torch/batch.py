@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import ruiz, solver
+from . import multistage, ruiz, solver
 from .api import (
     _route_backend,
     _solve_fresh,
@@ -56,6 +56,24 @@ def prepare_batch(
         stacked = {k: np.stack([a[k] for a in arrays]) for k in arrays[0]}
     with annotate("piqp.entry.copy"):
         return qpdata_from_arrays(stacked, device)
+
+
+def prepare_stage_batch(
+    problems: Sequence[dict], dtype=torch.float64, device=None
+) -> multistage.StageQPData:
+    """The stage twin of ``prepare_batch``: stack problem dicts (the
+    keyword arguments of ``multistage.from_stage_blocks``: Pd, Psub, Pa, Pc,
+    c and optionally A1, A2, Ag, b, G1, G2, Gg, h_l, h_u, x_l, x_u; one
+    shape for all) into one batched ``StageQPData`` on ``device`` (CUDA
+    unless the caller passes another).  The canonicalization runs in numpy
+    and each field moves to the device once."""
+    device = resolve_device(device)
+    np_dtype = np.dtype(str(dtype).removeprefix("torch."))
+    with annotate("piqp.entry.canonical"):
+        stacked = multistage._stack(
+            [multistage._stage_arrays(**prob, np_dtype=np_dtype) for prob in problems])
+    with annotate("piqp.entry.copy"):
+        return multistage._to_device(stacked, dtype, device)
 
 
 def warm_from_result(res: Result) -> BasicVars:

@@ -17,17 +17,20 @@ later solve of the same shapes: the solve copies its inputs into the
 buffers first.
 
 ``engages`` is the rule for where the graphs run: the condensed dense
-backend (``QPData`` itself) on a CUDA device, without per-iteration
-printing and without autograd recording the solve.  ``CACHE`` holds a
-few entries (buffers and graphs) by shape, dtype, device, cone flag and
-settings, least recently used first out, and makes a new one only where
-the device's free memory holds ``ROOM_PER_DATA_BYTE`` times the data;
-elsewhere the solve takes the eager loop.
+backend (``QPData`` itself) and the whole-horizon multistage backend
+(``multistage.StageQPData`` itself) on a CUDA device, without
+per-iteration printing and without autograd recording the solve.
+``CACHE`` holds a few entries (buffers and graphs) by data type and
+shapes, dtype, device, cone flag and settings, least recently used first
+out, and makes a new one only where the device's free memory holds
+``ROOM_PER_DATA_BYTE`` times the data; elsewhere the solve takes the
+eager loop.
 
 A replay runs no Python, so it neither opens the spans of the code it
-replays nor counts the hand-written kernels' launches: ``Segments.run``
-wraps each replay in the span ``piqp.ipm.graph`` (the caller keeps the
-eager loop's ``piqp.kkt.*`` spans around it), and a capture records the
+replays (the multistage backend's ``piqp.ms.*`` among them) nor counts
+the hand-written kernels' launches: ``Segments.run`` wraps each replay
+in the span ``piqp.ipm.graph`` (the caller keeps the eager loop's
+``piqp.kkt.*`` spans around it), and a capture records the
 launches it holds in the ``COUNTERS`` of ``ops/chol_inv.py`` and
 ``ops/signed_chol_inv.py`` and adds them on every replay.
 """
@@ -55,21 +58,28 @@ ROOM_PER_DATA_BYTE = 24
 
 def engages(data, settings: Settings) -> bool:
     """Whether a solve of ``data`` runs as CUDA graphs: condensed dense
-    data (not a subclass: the full-KKT backends, the stage data and the
-    horizon-sharded data keep the eager loop) on a CUDA device, no
+    data or whole-horizon stage data (not a subclass: the full-KKT
+    backends and the horizon-sharded data, whose solves exchange stages
+    between ranks, keep the eager loop) on a CUDA device, no
     per-iteration printing, and no tensor that autograd would record."""
-    if type(data) is not QPData or data.c.device.type != "cuda" or settings.verbose:
+    from .multistage import StageQPData
+
+    if (type(data) not in (QPData, StageQPData) or data.c.device.type != "cuda"
+            or settings.verbose):
         return False
     return not (torch.is_grad_enabled() and any(
-        getattr(data, f.name).requires_grad for f in dataclasses.fields(QPData)))
+        getattr(data, f.name).requires_grad for f in dataclasses.fields(data)))
 
 
-def key(data: QPData, settings: Settings, has_cone: bool) -> tuple:
-    """What an entry's buffers and graphs are built for."""
-    return (data.B, data.n, data.p, data.m, data.c.dtype, data.c.device, has_cone, settings)
+def key(data, settings: Settings, has_cone: bool) -> tuple:
+    """What an entry's buffers and graphs are built for: the data's type
+    and the shape of each of its fields (B, n, p, m; a stage layout's T,
+    D, Da, ra, rg)."""
+    shapes = tuple(tuple(getattr(data, f.name).shape) for f in dataclasses.fields(data))
+    return (type(data), shapes, data.c.dtype, data.c.device, has_cone, settings)
 
 
-def room(data: QPData) -> int:
+def room(data) -> int:
     """The free device memory a new entry for ``data`` asks for."""
     return ROOM_PER_DATA_BYTE * sum(t.nbytes for t in _leaves(data))
 
@@ -174,17 +184,32 @@ def capture_cuda(fn):
     torch.cuda.current_stream().wait_stream(stream)
     # the capture ran the launchers but no kernel: take their counts back,
     # and add them on each replay
-    held = []
-    for d, b in zip(counters, before):
-        held += [(d, i, d[i] - b[i]) for i in d if d[i] != b[i]]
-        d.update(b)
+    held = take_back(counters, before)
 
     def replay():
         graph.replay()
-        for d, i, n in held:
-            d[i] += n
+        add_held(held)
 
     return replay
+
+
+def take_back(counters: tuple, before: list) -> list:
+    """Put each counter back to its reading ``before`` (a key it gained
+    since, as the launch-shape counter gains one, goes too); returns
+    (counter, key, launches) for every count it had moved."""
+    held = []
+    for d, b in zip(counters, before):
+        held += [(d, k, d[k] - b.get(k, 0)) for k in d if d[k] != b.get(k, 0)]
+        d.clear()
+        d.update(b)
+    return held
+
+
+def add_held(held: list) -> None:
+    """Add the launches of ``take_back`` to their counters, as a replay of
+    the captured kernels makes them."""
+    for d, k, n in held:
+        d[k] = d.get(k, 0) + n
 
 
 def _standin(fn):

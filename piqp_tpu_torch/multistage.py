@@ -53,6 +53,7 @@ from . import ruiz as ruiz_mod
 from .ops import matvec as mv
 from .ops.chol_inv import cholesky_inverse_apply
 from .types import PIQP_INF, QPData, Scaling, max0, resolve_device, select
+from .utils.profiling import annotate
 
 
 @dataclasses.dataclass
@@ -507,48 +508,50 @@ def cr_chain_factor(Kd, Ksub, Ka, inverse: bool = False):
     levels = []
     ein = torch.einsum
     while T > 1:
-        H_o = T // 2
-        Do, De = Kd[..., 1::2, :, :], Kd[..., 0::2, :, :]
-        S_in = Ksub[..., 0::2, :, :][..., :H_o, :, :]  # K[j, j-1] for odd j
-        S_out = Ksub[..., 1::2, :, :]  # K[j+1, j]
-        Eo, Ee = Ka[..., 1::2, :, :], Ka[..., 0::2, :, :]
+        # one level: K2's launch (or the library factor) and the Schur updates
+        with annotate("piqp.ms.cr_level"):
+            H_o = T // 2
+            Do, De = Kd[..., 1::2, :, :], Kd[..., 0::2, :, :]
+            S_in = Ksub[..., 0::2, :, :][..., :H_o, :, :]  # K[j, j-1] for odd j
+            S_out = Ksub[..., 1::2, :, :]  # K[j+1, j]
+            Eo, Ee = Ka[..., 1::2, :, :], Ka[..., 0::2, :, :]
 
-        if inverse:
-            RHS = torch.cat([S_in, S_out.mT, Eo.mT], dim=-1)  # (..., H_o, D, 2D + W)
-            Lo, Lo_inv, Y = _chol_inv_apply_flat(Do, RHS)
-            ok = ok & _finite(Lo) & _finite(Lo_inv)
-            X1, X2, XE = Y[..., :D], Y[..., D:2 * D], Y[..., 2 * D:]
-            levels.append((Lo, Lo_inv, X1, X2, XE))
-        else:
-            Lo = _chol(Do)
-            ok = ok & _finite(Lo)
-            X1 = _bsolve(Lo, S_in)
-            X2 = _bsolve(Lo, S_out.mT)
-            XE = _bsolve(Lo, Eo.mT)
-            levels.append((Lo, X1, X2, XE))
+            if inverse:
+                RHS = torch.cat([S_in, S_out.mT, Eo.mT], dim=-1)  # (..., H_o, D, 2D + W)
+                Lo, Lo_inv, Y = _chol_inv_apply_flat(Do, RHS)
+                ok = ok & _finite(Lo) & _finite(Lo_inv)
+                X1, X2, XE = Y[..., :D], Y[..., D:2 * D], Y[..., 2 * D:]
+                levels.append((Lo, Lo_inv, X1, X2, XE))
+            else:
+                Lo = _chol(Do)
+                ok = ok & _finite(Lo)
+                X1 = _bsolve(Lo, S_in)
+                X2 = _bsolve(Lo, S_out.mT)
+                XE = _bsolve(Lo, Eo.mT)
+                levels.append((Lo, X1, X2, XE))
 
-        left = ein("...kji,...kjl->...kil", S_in, X1)
-        right = ein("...kij,...kjl->...kil", S_out, X2)
-        leftE = ein("...kaj,...kjl->...kal", Eo, X1)
-        rightE = ein("...kaj,...kjl->...kal", Eo, X2)
-        sub = -ein("...kij,...kjl->...kil", S_out, X1)
-        if T % 2 == 0:
-            # the last odd stage's right coupling is zero (S_out = 0)
-            Kd = De - left
-            Kd[..., 1:, :, :] -= right[..., :-1, :, :]
-            Ksub = sub
-            Ka = Ee - leftE
-            Ka[..., 1:, :, :] -= rightE[..., :-1, :, :]
-        else:
-            Kd = De.clone()
-            Kd[..., :H_o, :, :] -= left
-            Kd[..., 1:, :, :] -= right
-            Ksub = torch.cat([sub, torch.zeros_like(sub[..., :1, :, :])], dim=-3)
-            Ka = Ee.clone()
-            Ka[..., :H_o, :, :] -= leftE
-            Ka[..., 1:, :, :] -= rightE
-        Sacc = Sacc + ein("...kaj,...kjb->...ab", Eo, XE)
-        T = T - H_o
+            left = ein("...kji,...kjl->...kil", S_in, X1)
+            right = ein("...kij,...kjl->...kil", S_out, X2)
+            leftE = ein("...kaj,...kjl->...kal", Eo, X1)
+            rightE = ein("...kaj,...kjl->...kal", Eo, X2)
+            sub = -ein("...kij,...kjl->...kil", S_out, X1)
+            if T % 2 == 0:
+                # the last odd stage's right coupling is zero (S_out = 0)
+                Kd = De - left
+                Kd[..., 1:, :, :] -= right[..., :-1, :, :]
+                Ksub = sub
+                Ka = Ee - leftE
+                Ka[..., 1:, :, :] -= rightE[..., :-1, :, :]
+            else:
+                Kd = De.clone()
+                Kd[..., :H_o, :, :] -= left
+                Kd[..., 1:, :, :] -= right
+                Ksub = torch.cat([sub, torch.zeros_like(sub[..., :1, :, :])], dim=-3)
+                Ka = Ee.clone()
+                Ka[..., :H_o, :, :] -= leftE
+                Ka[..., 1:, :, :] -= rightE
+            Sacc = Sacc + ein("...kaj,...kjb->...ab", Eo, XE)
+            T = T - H_o
 
     Ls, Cs, Fs, acc = chain_factor(Kd, Ksub, Ka)
     ok = ok & _finite(Ls)
@@ -560,56 +563,58 @@ def cr_chain_fwd(factors, vs):
     side onto the evens, then the 1-stage base sweep.  Returns (state,
     gacc); ``state`` (per-level odd right-hand sides, base ws) feeds
     ``cr_chain_bwd``."""
-    levels, (Ls, Cs, Fs) = factors
-    gacc = vs.new_zeros(vs.shape[:-2] + (Fs.shape[-2],))
-    v_odds = []
-    for lev in levels:
-        X1, X2, XE = lev[-3], lev[-2], lev[-1]
-        T = vs.shape[-2]
-        H_o = T // 2
-        v_o, v_e = vs[..., 1::2, :], vs[..., 0::2, :]
-        v_odds.append(v_o)
-        lv = _mv(X1.mT, v_o)
-        rv = _mv(X2.mT, v_o)
-        if T % 2 == 0:
-            vs = v_e - lv
-            vs[..., 1:, :] -= rv[..., :-1, :]
-        else:
-            vs = v_e.clone()
-            vs[..., :H_o, :] -= lv
-            vs[..., 1:, :] -= rv
-        gacc = gacc + _mv(XE.flatten(-3, -2).mT, v_o.flatten(-2))  # sum over the odd blocks
-    ws, gb = chain_fwd(Ls, Cs, Fs, vs)
-    return (tuple(v_odds), ws), gacc + gb
+    with annotate("piqp.ms.cr_sweep"):
+        levels, (Ls, Cs, Fs) = factors
+        gacc = vs.new_zeros(vs.shape[:-2] + (Fs.shape[-2],))
+        v_odds = []
+        for lev in levels:
+            X1, X2, XE = lev[-3], lev[-2], lev[-1]
+            T = vs.shape[-2]
+            H_o = T // 2
+            v_o, v_e = vs[..., 1::2, :], vs[..., 0::2, :]
+            v_odds.append(v_o)
+            lv = _mv(X1.mT, v_o)
+            rv = _mv(X2.mT, v_o)
+            if T % 2 == 0:
+                vs = v_e - lv
+                vs[..., 1:, :] -= rv[..., :-1, :]
+            else:
+                vs = v_e.clone()
+                vs[..., :H_o, :] -= lv
+                vs[..., 1:, :] -= rv
+            gacc = gacc + _mv(XE.flatten(-3, -2).mT, v_o.flatten(-2))  # sum over the odd blocks
+        ws, gb = chain_fwd(Ls, Cs, Fs, vs)
+        return (tuple(v_odds), ws), gacc + gb
 
 
 def cr_chain_bwd(factors, state, xa):
     """Backward cyclic-reduction sweep given the coupling variables xa
     (..., W): the base sweep, then the levels back-substitute the odd
     stages."""
-    levels, (Ls, Cs, Fs) = factors
-    v_odds, ws = state
-    x = chain_bwd(Ls, Cs, Fs, ws, xa)
-    for lev, v_o in zip(reversed(levels), reversed(v_odds)):
-        X1, X2, XE = lev[-3], lev[-2], lev[-1]
-        x_e = x
-        H_o = v_o.shape[-2]
-        T = H_o + x_e.shape[-2]
-        if T % 2 == 0:
-            x_next = torch.cat([x_e[..., 1:, :], torch.zeros_like(x_e[..., :1, :])], dim=-2)
-        else:
-            x_next = x_e[..., 1:, :]
-        if len(lev) == 5:  # explicit inverse: products against Lo_inv
-            x_o = _mv(lev[1].mT, _mv(lev[1], v_o))
-        else:
-            x_o = _bsolve(lev[0], v_o.unsqueeze(-1)).squeeze(-1)
-        x_o = x_o - _mv(X1, x_e[..., :H_o, :])
-        x_o = x_o - _mv(X2, x_next)
-        x_o = x_o - _mv(XE, xa[..., None, :].expand(XE.shape[:-2] + xa.shape[-1:]))
-        x = x_e.new_zeros(x_e.shape[:-2] + (T, x_e.shape[-1]))
-        x[..., 0::2, :] = x_e
-        x[..., 1::2, :] = x_o
-    return x
+    with annotate("piqp.ms.cr_sweep"):
+        levels, (Ls, Cs, Fs) = factors
+        v_odds, ws = state
+        x = chain_bwd(Ls, Cs, Fs, ws, xa)
+        for lev, v_o in zip(reversed(levels), reversed(v_odds)):
+            X1, X2, XE = lev[-3], lev[-2], lev[-1]
+            x_e = x
+            H_o = v_o.shape[-2]
+            T = H_o + x_e.shape[-2]
+            if T % 2 == 0:
+                x_next = torch.cat([x_e[..., 1:, :], torch.zeros_like(x_e[..., :1, :])], dim=-2)
+            else:
+                x_next = x_e[..., 1:, :]
+            if len(lev) == 5:  # explicit inverse: products against Lo_inv
+                x_o = _mv(lev[1].mT, _mv(lev[1], v_o))
+            else:
+                x_o = _bsolve(lev[0], v_o.unsqueeze(-1)).squeeze(-1)
+            x_o = x_o - _mv(X1, x_e[..., :H_o, :])
+            x_o = x_o - _mv(X2, x_next)
+            x_o = x_o - _mv(XE, xa[..., None, :].expand(XE.shape[:-2] + xa.shape[-1:]))
+            x = x_e.new_zeros(x_e.shape[:-2] + (T, x_e.shape[-1]))
+            x[..., 0::2, :] = x_e
+            x[..., 1::2, :] = x_o
+        return x
 
 
 def cr_factor(Kd, Ksub, Ka, Kc, inverse: bool = False):
@@ -1132,17 +1137,28 @@ def _pad_stage_arrays(a: dict, T_pad: int) -> dict:
     return out
 
 
-def stage_data_from_arrays(arrays: list, dtype=torch.float64, device=None) -> StageQPData:
-    """Stack per-problem canonical arrays (``_stage_arrays``) into one
-    batched StageQPData on ``device``: one host-to-device copy per field."""
+def _stack(arrays: list) -> dict:
+    """Per-problem canonical arrays (``_stage_arrays``) stacked field by
+    field on the host."""
+    return {f.name: np.stack([a[f.name] for a in arrays]) for f in dataclasses.fields(StageQPData)}
+
+
+def _to_device(stacked: dict, dtype=torch.float64, device=None) -> StageQPData:
+    """Stacked canonical arrays as one batched StageQPData on ``device``:
+    one host-to-device copy per field."""
     device = resolve_device(device)
 
     def tensor(k):
-        v = np.stack([a[k] for a in arrays])
-        t = torch.as_tensor(np.ascontiguousarray(v), device=device)
+        t = torch.as_tensor(np.ascontiguousarray(stacked[k]), device=device)
         return t.to(dtype) if k in _FLOAT_FIELDS else t
 
-    return StageQPData(**{f.name: tensor(f.name) for f in dataclasses.fields(StageQPData)})
+    return StageQPData(**{k: tensor(k) for k in stacked})
+
+
+def stage_data_from_arrays(arrays: list, dtype=torch.float64, device=None) -> StageQPData:
+    """Stack per-problem canonical arrays (``_stage_arrays``) into one
+    batched StageQPData on ``device``: one host-to-device copy per field."""
+    return _to_device(_stack(arrays), dtype, device)
 
 
 def from_stage_blocks(
@@ -1274,12 +1290,12 @@ def random_multistage_qp(T: int, D: int, Da: int = 0, ra: int = 0, rg: int = 0,
 
 def random_multistage_batch(seeds, T: int, D: int, Da: int = 0, ra: int = 0,
                             rg: int = 0, dtype=torch.float64, device=None) -> StageQPData:
-    """``random_multistage_qp`` for every seed, stacked into one batch with
-    one host-to-device copy per field."""
-    np_dtype = np.dtype(str(dtype).removeprefix("torch."))
-    arrays = [_stage_arrays(**random_multistage_arrays(T, D, Da, ra, rg, s),
-                            np_dtype=np_dtype) for s in seeds]
-    return stage_data_from_arrays(arrays, dtype, device)
+    """``random_multistage_qp`` for every seed, stacked into one batch by
+    the stage entry ``batch.prepare_stage_batch``."""
+    from .batch import prepare_stage_batch
+
+    return prepare_stage_batch([random_multistage_arrays(T, D, Da, ra, rg, s) for s in seeds],
+                               dtype, device)
 
 
 # ---------------------------------------------------------------------------

@@ -202,7 +202,9 @@ def resident_apply_threads(n: int) -> int:
 # ``apply_launches_by_dtype`` and ``apply_launches_by_route`` the same for
 # ``cholesky_inverse_apply`` (a split call counts once), and
 # ``apply_factor_launches_by_route`` / ``_by_cluster`` the K1 kernel each
-# split call launched.
+# split call launched; ``apply_launches_by_shape`` counts K2's launches of
+# every route by ``"<dtype>:<N>x<n>x<r>"`` (a cyclic-reduction level
+# launches N = B x its odd blocks), a key appearing at its first launch.
 launches_by_dtype = {"float32": 0, "float64": 0}
 launches_by_route = {"resident": 0, "cluster": 0}
 launches_by_cluster = {c: 0 for c in range(2, MAX_CLUSTER + 1)}
@@ -210,11 +212,13 @@ apply_launches_by_dtype = {"float32": 0, "float64": 0}
 apply_launches_by_route = {"small": 0, "resident": 0, "split": 0}
 apply_factor_launches_by_route = {"resident": 0, "cluster": 0}
 apply_factor_launches_by_cluster = {c: 0 for c in range(2, MAX_CLUSTER + 1)}
+apply_launches_by_shape: dict = {}
 # every counter above, for code that counts launches the launchers do not
 # run (a CUDA graph's replay, ``graphs.py``)
 COUNTERS = (launches_by_dtype, launches_by_route, launches_by_cluster,
             apply_launches_by_dtype, apply_launches_by_route,
-            apply_factor_launches_by_route, apply_factor_launches_by_cluster)
+            apply_factor_launches_by_route, apply_factor_launches_by_cluster,
+            apply_launches_by_shape)
 
 
 def kernel_route(n: int, dtype: torch.dtype) -> str:
@@ -392,8 +396,11 @@ def _launch_apply(K: torch.Tensor, RHS: torch.Tensor, route: str):
         if rc != 0:
             raise RuntimeError(f"chol_inv_apply {route} kernel launch failed with "
                                f"cudaError_t {rc}")
-    apply_launches_by_dtype[str(K.dtype).removeprefix("torch.")] += 1
+    dtype = str(K.dtype).removeprefix("torch.")
+    apply_launches_by_dtype[dtype] += 1
     apply_launches_by_route[route] += 1
+    shape = f"{dtype}:{N}x{n}x{r}"
+    apply_launches_by_shape[shape] = apply_launches_by_shape.get(shape, 0) + 1
     return L, Linv, Y
 
 

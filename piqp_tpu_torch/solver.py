@@ -1158,8 +1158,9 @@ def solve_scaled(
     *unscaled* result (solver.hpp:109-112).  ``warm``: optional user-space
     (unscaled) iterates (x, y, z_*) of a nearby problem, per problem.
 
-    Where ``graphs.engages`` (condensed dense data on a CUDA device) and
-    the device has room for the cache entry, the loop's segments run as
+    Where ``graphs.engages`` (condensed dense or whole-horizon stage data
+    on a CUDA device) and the device has room for the cache entry, the
+    loop's segments run as
     CUDA graphs on persistent buffers, with the same decisions and
     arithmetic; elsewhere every kernel is launched from Python."""
     if graphs.engages(data, settings):

@@ -20,7 +20,8 @@ that encloses it; the profiler keeps them, nothing else does.
 The program's regions are named ``piqp.<layer>[.<part>]``:
 
 - ``piqp.entry.canonical``, ``piqp.entry.copy``: ``batch.prepare_batch``'s
-  numpy canonicalisation and its host-to-device copies;
+  and ``batch.prepare_stage_batch``'s numpy canonicalisation and their
+  host-to-device copies;
 - ``piqp.solve``: one request, ``api._solve_fresh`` or ``_solve_reuse``;
 - ``piqp.ruiz``: the Ruiz equilibration of ``_solve_fresh``;
 - ``piqp.ipm.iter``: one trip of ``solver.solve_scaled``'s loop, in either
@@ -32,7 +33,11 @@ The program's regions are named ``piqp.<layer>[.<part>]``:
   loop (``graphs.Segments.run``), inside the trip's and the KKT's spans
   that the segment's eager code sits in;
 - ``piqp.horizon.factor``, ``piqp.horizon.solve``: the horizon-sharded
-  factorization and condensed solve (``parallel/horizon.py``).
+  factorization and condensed solve (``parallel/horizon.py``);
+- ``piqp.ms.cr_level``: one level of ``multistage.cr_chain_factor``'s
+  cyclic reduction, its K2 launch (or library factor) and Schur updates;
+- ``piqp.ms.cr_sweep``: one of ``multistage.cr_chain_fwd`` and
+  ``cr_chain_bwd``, the cyclic-reduction sweeps of a condensed solve.
 
 Wall-clock phase timings stay host-side in the stateful solvers
 (``Settings(compute_timings=True)``).

@@ -163,6 +163,35 @@ def _equality_only(settings):
     both.solve(data)
 
 
+def _stage_fleet(seed, T=16):
+    """Stage data at T = 16, the cyclic reduction's smallest horizon, with
+    an arrow, equality and inequality rows a stage."""
+    return random_multistage_batch([seed + i for i in range(4)], T=T, D=3, Da=1, ra=1, rg=1,
+                                   device="cpu")
+
+
+def _stage_cold_twice(settings):
+    both = _Both(settings)
+    res = both.solve(_stage_fleet(0))
+    assert res.info.status.tolist() == [SOLVED] * 4
+    both.solve(_stage_fleet(10))
+    assert both.entries[0] is both.entries[1] and both.entries[0].segments._replays
+
+
+def _stage_warm_moved_costs(settings):
+    both = _Both(settings)
+    data = _stage_fleet(0)
+    last = both.solve(data)
+    rng = np.random.default_rng(5)
+    for _ in range(3):
+        c = data.c + torch.as_tensor(1e-3 * rng.standard_normal(tuple(data.c.shape)))
+        last = both.solve(dataclasses.replace(data, c=c), warm=last)
+        assert last.info.status.tolist() == [SOLVED] * 4
+    # another horizon of the same n is another entry
+    both.solve(_stage_fleet(0, T=8))
+    assert len(both.cache) == 2
+
+
 CASES = {
     "cold_twice": _cold_twice,
     "warm_moved_costs": _warm_moved_costs,
@@ -172,6 +201,8 @@ CASES = {
     "equality_only": _equality_only,
     "centrality_correctors": lambda s: _cold_twice(dataclasses.replace(
         s, centrality_correctors=2)),
+    "stage_cold_twice": _stage_cold_twice,
+    "stage_warm_moved_costs": _stage_warm_moved_costs,
 }
 
 
@@ -201,8 +232,6 @@ REFUSED = {
     "cpu_tensors": lambda: (_dense(), Settings()),
     "dense_lu": lambda: (_on(FullKKTQPData(**vars(_dense()))), Settings()),
     "dense_ldlt": lambda: (_on(LDLTKKTQPData(**vars(_dense()))), Settings()),
-    "multistage": lambda: (_on(random_multistage_batch(
-        [0, 1], T=3, D=2, Da=1, ra=1, rg=1, device="cpu")), Settings()),
     "horizon_sharded": lambda: (_on(_take_stages(random_multistage_batch(
         [0, 1], T=4, D=2, Da=1, ra=1, rg=1, device="cpu"), (0, 4))), Settings()),
     "verbose": lambda: (_on(_dense()), Settings(verbose=True)),
@@ -216,6 +245,17 @@ def test_graphs_engage_only_on_condensed_cuda_data(case):
     # the same settings on condensed data on the card engage (the control)
     if not settings.verbose:
         assert graphs.engages(_on(_dense()), settings)
+
+
+def test_graphs_engage_on_whole_horizon_stage_data():
+    data = random_multistage_batch([0, 1], T=3, D=2, Da=1, ra=1, rg=1, device="cpu")
+    assert graphs.engages(_on(data), Settings())
+    assert not graphs.engages(data, Settings())
+    # a stage layout and a dense one of the same sizes get their own entries
+    dense = _dense()
+    assert graphs.key(data, MIXED, True) != graphs.key(dense, MIXED, True)
+    assert graphs.key(data, MIXED, True) == graphs.key(
+        random_multistage_batch([2, 3], T=3, D=2, Da=1, ra=1, rg=1, device="cpu"), MIXED, True)
 
 
 def test_graphs_refuse_a_solve_autograd_records():
@@ -358,20 +398,35 @@ def _cuda_fleet(count, n, seed):
 
 
 def _launches():
-    return dict(chol_inv.launches_by_dtype), dict(chol_inv.launches_by_route)
+    """K1's launches by dtype and by route, and K2's by shape (a shape's
+    key appears at its first launch)."""
+    return (dict(chol_inv.launches_by_dtype), dict(chol_inv.launches_by_route),
+            dict(chol_inv.apply_launches_by_shape))
 
 
 def _advance(before, after):
-    return [{k: a[k] - b[k] for k in a} for b, a in zip(before, after)]
+    return [{k: a[k] - b.get(k, 0) for k in a} for b, a in zip(before, after)]
+
+
+# each card fleet and the counter of ``_launches`` its kernel moves
+CARD_FLEETS = {
+    # condensed n = 32: K1
+    "dense": (lambda: _cuda_fleet(64, 32, seed=100), 0),
+    # stage data at T = 40: cyclic reduction, K2 at every level
+    "stage": (lambda: random_multistage_batch(list(range(300, 364)), T=40, D=6, Da=0, ra=3,
+                                              rg=2, device="cuda"), 2),
+}
 
 
 @pytest.mark.card
-def test_graphed_loop_is_the_eager_loop_on_the_card(card):
-    """B = 64, n = 32, mixed: a cold solve, then 3 warm re-solves with moved
+@pytest.mark.parametrize("fleet", CARD_FLEETS)
+def test_graphed_loop_is_the_eager_loop_on_the_card(fleet, card):
+    """B = 64, mixed: a cold solve, then 3 warm re-solves with moved
     costs, graphed (``solve_scaled``) and eager; status, iterations and x
-    bitwise equal, and K1's launches counted alike."""
+    bitwise equal, and the hand-written kernels' launches counted alike."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    data = _cuda_fleet(64, 32, seed=100)
+    make, counter = CARD_FLEETS[fleet]
+    data = make()
     assert graphs.engages(data, MIXED)
     rng = np.random.default_rng(7)
     costs = [data.c] + [data.c + torch.as_tensor(1e-3 * rng.standard_normal(
@@ -387,16 +442,16 @@ def test_graphed_loop_is_the_eager_loop_on_the_card(card):
         torch.cuda.synchronize()
         return out, _advance(before, _launches())
 
-    eager, eager_k1 = rounds(solver._solve_eager)
-    graphed, graphed_k1 = rounds(solver.solve_scaled)
+    eager, eager_k = rounds(solver._solve_eager)
+    graphed, graphed_k = rounds(solver.solve_scaled)
     for e, g in zip(eager, graphed):
         _bitwise(e.info.status, g.info.status, "status")
         _bitwise(e.info.iter, g.info.iter, "iter")
         _bitwise(e.x, g.x, "x")
     assert eager[0].info.status.tolist() == [SOLVED] * 64
-    assert graphed_k1 == eager_k1 and sum(eager_k1[0].values()) > 0
+    assert graphed_k == eager_k and sum(eager_k[counter].values()) > 0
     # a second pass replays every segment captured in the first
-    again, again_k1 = rounds(solver.solve_scaled)
+    again, again_k = rounds(solver.solve_scaled)
     for e, g in zip(eager, again):
         _bitwise(e.x, g.x, "x")
-    assert again_k1 == eager_k1
+    assert again_k == eager_k
