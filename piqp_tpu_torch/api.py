@@ -110,63 +110,22 @@ def _symmetrize(P) -> np.ndarray:
     return np.triu(P) + np.triu(P, 1).T
 
 
-def canonical_arrays(
-    P, c, A=None, b=None, G=None, h_l=None, h_u=None, x_l=None, x_u=None,
-    dtype=torch.float64,
-) -> dict:
-    """One problem's canonical fields as numpy arrays (no batch axis)."""
-    np_dtype = np.dtype(str(dtype).removeprefix("torch."))
-    P = np.asarray(P, dtype=np_dtype)
-    if P.ndim != 2 or P.shape[0] != P.shape[1]:
-        raise ValueError("P must be square")
-    n = P.shape[0]
-    c = _as_1d(c, n, np_dtype, 0.0)
-    p = 0 if A is None else np.asarray(A).shape[0]
-    m = 0 if G is None else np.asarray(G).shape[0]
-    A = _as_2d(A, p, n, np_dtype)
-    b = _as_1d(b, p, np_dtype, 0.0)
-    G = _as_2d(G, m, n, np_dtype)
-    if m > 0 and h_l is None and h_u is None:
-        raise ValueError("h_l or h_u should be provided when G is given")
-    h_l = _as_1d(h_l, m, np_dtype, -np.inf)
-    h_u = _as_1d(h_u, m, np_dtype, np.inf)
-    x_l = _as_1d(x_l, n, np_dtype, -np.inf)
-    x_u = _as_1d(x_u, n, np_dtype, np.inf)
-    h_l, h_u, x_l, x_u, hl_mask, hu_mask, xl_mask, xu_mask, dead = (
-        _canon_bounds(h_l, h_u, x_l, x_u)
-    )
-    if dead.any():
-        G = G.copy()
-        G[dead, :] = 0.0
-    return dict(
-        P=_symmetrize(P), c=c, A=A, b=b, G=G, h_l=h_l, h_u=h_u, x_l=x_l,
-        x_u=x_u, x_b_scaling=np.ones(n, np_dtype), hl_mask=hl_mask,
-        hu_mask=hu_mask, xl_mask=xl_mask, xu_mask=xu_mask,
-    )
-
-
-def qpdata_from_arrays(arrays: dict, device) -> QPData:
-    """Batched QPData from canonical arrays that carry the batch axis."""
-    return QPData(**{
-        k: torch.as_tensor(np.ascontiguousarray(v), device=device)
-        for k, v in arrays.items()
-    })
-
-
 def prepare_data(
     P, c, A=None, b=None, G=None, h_l=None, h_u=None, x_l=None, x_u=None,
     dtype=torch.float64, device=None,
 ) -> QPData:
     """Canonicalize one QP into the masked representation, as a batch of
-    one on ``device`` (CUDA unless the caller passes another):
+    one on ``device`` (CUDA unless the caller passes another), through
+    ``batch.prepare_batch``:
 
       - only the upper triangle of P is used and symmetrized;
       - bounds with magnitude >= 1e30 (PIQP_INF) are inactive;
       - rows of G with neither bound are zeroed and get fake bounds [-1, 1].
     """
-    device = resolve_device(device)
-    arrays = canonical_arrays(P, c, A, b, G, h_l, h_u, x_l, x_u, dtype)
-    return qpdata_from_arrays({k: v[None] for k, v in arrays.items()}, device)
+    from .batch import prepare_batch
+
+    prob = dict(P=P, c=c, A=A, b=b, G=G, h_l=h_l, h_u=h_u, x_l=x_l, x_u=x_u)
+    return prepare_batch([prob], dtype, device)
 
 
 def has_cone(data: QPData) -> bool:

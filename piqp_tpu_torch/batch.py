@@ -21,15 +21,10 @@ import torch
 import torch.distributed as dist
 
 from . import multistage, ruiz, solver
-from .api import (
-    _route_backend,
-    _solve_fresh,
-    _warm_vars,
-    canonical_arrays,
-    qpdata_from_arrays,
-)
+from .api import _route_backend, _solve_fresh, _warm_vars
 from .parallel.comm import all_gather_tree, require_group
 from .types import (
+    PIQP_INF,
     BasicVars,
     QPData,
     Result,
@@ -43,19 +38,100 @@ from .types import (
 from .utils.profiling import annotate
 
 
+# ``prepare_batch`` calls by where the raw fields were staged: page-locked
+# memory (a CUDA target, copied without blocking) or pageable memory
+entry_batches_by_staging = {"pinned": 0, "pageable": 0}
+
+# the raw fields of a problem dict, in their order of validation, and what
+# an omitted one holds where that is not 0
+_FIELDS = ("P", "c", "A", "b", "G", "h_l", "h_u", "x_l", "x_u")
+_FILL = dict(h_l=-np.inf, h_u=np.inf, x_l=-np.inf, x_u=np.inf)
+
+
+def _fields(P, c, A=None, b=None, G=None, h_l=None, h_u=None, x_l=None, x_u=None):
+    return dict(P=P, c=c, A=A, b=b, G=G, h_l=h_l, h_u=h_u, x_l=x_l, x_u=x_u)
+
+
+def _shapes(prob: dict) -> dict:
+    """Each field's shape, checked by shape alone: P square, every given
+    field of its expected shape, a bound when G is given."""
+    P = np.shape(prob["P"])
+    if len(P) != 2 or P[0] != P[1]:
+        raise ValueError("P must be square")
+    n = P[0]
+    p = 0 if prob["A"] is None else np.shape(prob["A"])[0]
+    m = 0 if prob["G"] is None else np.shape(prob["G"])[0]
+    want = dict(P=(n, n), c=(n,), A=(p, n), b=(p,), G=(m, n), h_l=(m,), h_u=(m,),
+                x_l=(n,), x_u=(n,))
+    for k in _FIELDS[1:]:
+        if k == "h_l" and m > 0 and prob["h_l"] is None and prob["h_u"] is None:
+            raise ValueError("h_l or h_u should be provided when G is given")
+        if prob[k] is not None and np.shape(prob[k]) != want[k]:
+            raise ValueError(f"expected shape {want[k]}, got {np.shape(prob[k])}")
+    return want
+
+
+def _stage(column: list, shape: tuple, fill: float, dtype, device, pinned: bool):
+    """One field of the batch on ``device``: the given values stacked once,
+    cast to ``dtype``, into host staging (page-locked when ``pinned``) and
+    copied without blocking; a field no problem gives is filled there."""
+    if all(v is None for v in column):
+        return torch.full((len(column), *shape), fill, dtype=dtype, device=device)
+    staging = torch.empty((len(column), *shape), dtype=dtype, pin_memory=pinned)
+    if any(v is None for v in column):
+        filler = np.full(shape, fill, staging.numpy().dtype)
+        column = [filler if v is None else v for v in column]
+    np.stack(column, out=staging.numpy(), casting="unsafe")
+    return staging.to(device, non_blocking=True)
+
+
+def _canonical(P, c, A, b, G, h_l, h_u, x_l, x_u) -> QPData:
+    """The masked representation of staged (B, ...) fields, elementwise on
+    their device: the upper triangle of P symmetrized, masks from the
+    PIQP_INF convention, dead rows of G zeroed with fake bounds [-1, 1],
+    exact zeros at inactive bounds (``api._canon_bounds`` per batch)."""
+    hl_mask = h_l > -PIQP_INF
+    hu_mask = h_u < PIQP_INF
+    dead = ~hl_mask & ~hu_mask
+    h_l = torch.where(dead, -1.0, h_l)
+    h_u = torch.where(dead, 1.0, h_u)
+    hl_mask = h_l > -PIQP_INF
+    hu_mask = h_u < PIQP_INF
+    xl_mask = x_l > -PIQP_INF
+    xu_mask = x_u < PIQP_INF
+    return QPData(
+        P=torch.triu(P) + torch.triu(P, 1).mT, c=c, A=A, b=b,
+        G=G.masked_fill(dead[..., None], 0.0),
+        h_l=torch.where(hl_mask, h_l, 0.0), h_u=torch.where(hu_mask, h_u, 0.0),
+        x_l=torch.where(xl_mask, x_l, 0.0), x_u=torch.where(xu_mask, x_u, 0.0),
+        x_b_scaling=torch.ones_like(c), hl_mask=hl_mask, hu_mask=hu_mask,
+        xl_mask=xl_mask, xu_mask=xu_mask,
+    )
+
+
 def prepare_batch(
     problems: Sequence[dict], dtype=torch.float64, device=None
 ) -> QPData:
-    """Stack problem dicts (keys P, c, A, b, G, h_l, h_u, x_l, x_u) into one
-    batched QPData on ``device`` (CUDA unless the caller passes another).
-    The canonicalization runs in numpy and each field moves to the device
-    once."""
+    """Stack problem dicts (keys P, c, A, b, G, h_l, h_u, x_l, x_u; one
+    (n, p, m) for all) into one batched QPData on ``device`` (CUDA unless
+    the caller passes another).  The host checks shapes only; each field is
+    stacked once into host staging, page-locked for a CUDA device, and
+    copied once; the canonicalization runs on the (B, ...) tensors there."""
     device = resolve_device(device)
-    with annotate("piqp.entry.canonical"):
-        arrays = [canonical_arrays(**prob, dtype=dtype) for prob in problems]
-        stacked = {k: np.stack([a[k] for a in arrays]) for k in arrays[0]}
+    pinned = device.type == "cuda"
+    probs = [_fields(**prob) for prob in problems]
+    if not probs:
+        raise ValueError("no problems to stack")
+    shapes = _shapes(probs[0])
+    for i, prob in enumerate(probs[1:], 1):
+        if _shapes(prob) != shapes:
+            raise ValueError(f"problem {i} differs in shape from problem 0")
+    entry_batches_by_staging["pinned" if pinned else "pageable"] += 1
     with annotate("piqp.entry.copy"):
-        return qpdata_from_arrays(stacked, device)
+        staged = {k: _stage([prob[k] for prob in probs], shapes[k], _FILL.get(k, 0.0),
+                            dtype, device, pinned) for k in _FIELDS}
+    with annotate("piqp.entry.canonical"):
+        return _canonical(**staged)
 
 
 def prepare_stage_batch(

@@ -19,9 +19,12 @@ that encloses it; the profiler keeps them, nothing else does.
 
 The program's regions are named ``piqp.<layer>[.<part>]``:
 
-- ``piqp.entry.canonical``, ``piqp.entry.copy``: ``batch.prepare_batch``'s
-  and ``batch.prepare_stage_batch``'s numpy canonicalisation and their
-  host-to-device copies;
+- ``piqp.entry.copy``, ``piqp.entry.canonical``: ``batch.prepare_batch``'s
+  stack of each raw field into host staging with its host-to-device copy,
+  then the canonicalisation of the batch on its device (the counter
+  ``batch.entry_batches_by_staging`` counts its calls by staging,
+  ``"pinned"`` or ``"pageable"``); ``batch.prepare_stage_batch``'s numpy
+  canonicalisation (``canonical``) and its copies (``copy``), in that order;
 - ``piqp.solve``: one request, ``api._solve_fresh`` or ``_solve_reuse``;
 - ``piqp.ruiz``: the Ruiz equilibration of ``_solve_fresh``;
 - ``piqp.ipm.iter``: one trip of ``solver.solve_scaled``'s loop, in either

@@ -29,6 +29,11 @@ clock as the harness times a round.  One JSON line:
   trip;
 - ``off_us_per_span``: µs a ``with annotate(...)`` costs with no profiler
   recording, over a loop of N less the empty loop;
+- ``device_ops``: the traced window's device operations that took most
+  time, [name, s], over its K rounds;
+- ``entry_batches_by_staging``: ``batch.prepare_batch``'s calls in the
+  process by staging (``"pinned"``, ``"pageable"``; None without the
+  counter);
 - ``device``: the card's name and power limit.
 """
 
@@ -215,6 +220,8 @@ def main(argv=None):
              "outside_trips": outside[0], "scalar_reads_outside_trips": outside[1],
              "per_trip": per_trip}
 
+    # the dense entry's calls by staging (None where the program has no counter)
+    staging = getattr(sys.modules.get("piqp_tpu_torch.batch"), "entry_batches_by_staging", None)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout
     out = {
@@ -227,6 +234,8 @@ def main(argv=None):
         "span_counts": dict(collections.Counter(n for n, _, _ in spans)),
         "launches": launches, "syncs": syncs,
         "off_us_per_span": off_cost(annotate, args.loop),
+        "device_ops": trace.device_ops(),
+        "entry_batches_by_staging": staging,
         "device": {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi.strip()},
         "seconds": time.perf_counter() - T0,
     }

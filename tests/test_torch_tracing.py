@@ -8,7 +8,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import piqp_tpu_torch
-from piqp_tpu_torch import Settings, prepare_batch, solve_batch, warm_from_result
+from piqp_tpu_torch import Settings, batch, prepare_batch, solve_batch, warm_from_result
 from piqp_tpu_torch.utils.random import dense_strongly_convex_qp
 
 SOLVED = int(piqp_tpu_torch.Status.SOLVED)
@@ -84,8 +84,16 @@ def test_prepare_batch_spans():
     probs = _problems(3)
     data, spans = _traced(lambda: prepare_batch(probs, device="cpu"))
     assert data.B == 3
-    assert [s[0] for s in spans] == ["piqp.entry.canonical", "piqp.entry.copy"]
+    assert [s[0] for s in spans] == ["piqp.entry.copy", "piqp.entry.canonical"]
     assert spans[0][2] <= spans[1][1]
+
+
+def test_prepare_batch_counts_its_staging():
+    before = dict(batch.entry_batches_by_staging)
+    for calls in (1, 2):
+        prepare_batch(_problems(2), device="cpu")
+        assert batch.entry_batches_by_staging == dict(
+            before, pageable=before["pageable"] + calls)
 
 
 def test_no_span_without_a_profiler(monkeypatch):
