@@ -23,13 +23,11 @@ import dataclasses
 import time
 from typing import Optional
 
-import numpy as np
 import torch
 
 from . import kkt, ruiz, solver
 from .ops import matvec as ops
 from .types import (
-    PIQP_INF,
     BasicVars,
     FullKKTQPData,
     KKTBackend,
@@ -40,6 +38,7 @@ from .types import (
     Settings,
     Status,
     Vars,
+    canonical_bounds,
     index,
     init_info,
     resolve_device,
@@ -61,53 +60,6 @@ def _route_backend(data, settings: Settings):
             return cls(**{f.name: getattr(data, f.name)
                           for f in dataclasses.fields(QPData)})
     return data
-
-
-def _as_2d(M, rows, cols, dtype):
-    if M is None:
-        return np.zeros((rows, cols), dtype=dtype)
-    M = np.asarray(M, dtype=dtype)
-    if M.shape != (rows, cols):
-        raise ValueError(f"expected shape {(rows, cols)}, got {M.shape}")
-    return M
-
-
-def _as_1d(v, size, dtype, fill):
-    if v is None:
-        return np.full(size, fill, dtype=dtype)
-    v = np.asarray(v, dtype=dtype)
-    if v.shape != (size,):
-        raise ValueError(f"expected shape {(size,)}, got {v.shape}")
-    return v
-
-
-def _canon_bounds(h_l, h_u, x_l, x_u):
-    """Bound canonicalization: masks from the PIQP_INF convention
-    (dense/data.hpp:100-142), dead-row fake bounds [-1, 1]
-    (dense/data.hpp:144-169), exact zeros at inactive entries.  Returns the
-    vectors, the four masks and the dead-row mask."""
-    hl_mask = h_l > -PIQP_INF
-    hu_mask = h_u < PIQP_INF
-    dead = ~hl_mask & ~hu_mask
-    if dead.any():
-        h_l = np.where(dead, -1.0, h_l)
-        h_u = np.where(dead, 1.0, h_u)
-        hl_mask = h_l > -PIQP_INF
-        hu_mask = h_u < PIQP_INF
-
-    xl_mask = x_l > -PIQP_INF
-    xu_mask = x_u < PIQP_INF
-
-    h_l = np.where(hl_mask, h_l, 0.0)
-    h_u = np.where(hu_mask, h_u, 0.0)
-    x_l = np.where(xl_mask, x_l, 0.0)
-    x_u = np.where(xu_mask, x_u, 0.0)
-    return h_l, h_u, x_l, x_u, hl_mask, hu_mask, xl_mask, xu_mask, dead
-
-
-def _symmetrize(P) -> np.ndarray:
-    """Use the upper triangle of P only (solver.hpp:182)."""
-    return np.triu(P) + np.triu(P, 1).T
 
 
 def prepare_data(
@@ -266,6 +218,8 @@ class DenseSolver:
 
     def setup(self, P, c, A=None, b=None, G=None, h_l=None, h_u=None,
               x_l=None, x_u=None) -> None:
+        from .batch import _shapes
+
         t0 = time.perf_counter()
         self._raw = dict(P=P, c=c, A=A, b=b, G=G, h_l=h_l, h_u=h_u,
                          x_l=x_l, x_u=x_u)
@@ -273,86 +227,67 @@ class DenseSolver:
             P, c, A, b, G, h_l, h_u, x_l, x_u,
             dtype=self._settings.torch_dtype, device=self._device,
         )
+        self._shapes = _shapes(self._raw)
         self._cone = has_cone(self._data)
-        np_dtype = self._np_dtype()
-        m = self._data.m
-        hl = _as_1d(h_l, m, np_dtype, -np.inf)
-        hu = _as_1d(h_u, m, np_dtype, np.inf)
-        self._dead = ~(hl > -PIQP_INF) & ~(hu < PIQP_INF)
+        self._dead = self._host_bounds()[-1]
         self._scaling = None
         self._first_run = True
         self._setup_time = time.perf_counter() - t0
 
-    def _np_dtype(self):
-        return np.dtype(self._settings.dtype)
+    def _staged(self, k: str, device=None) -> torch.Tensor:
+        """Raw field ``k`` as the entry stages it, a batch of one on
+        ``device`` (the solver's by default)."""
+        from .batch import _FILL, _stage
 
-    def _tensor(self, v) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(v), device=self._device)[None]
+        device = self._device if device is None else device
+        return _stage([self._raw[k]], self._shapes[k], _FILL.get(k, 0.0),
+                      self._settings.torch_dtype, device, device.type == "cuda")
+
+    def _host_bounds(self) -> tuple:
+        """``types.canonical_bounds`` of the raw bounds, on the host, so that
+        the dead-row pattern needs no read from the device."""
+        cpu = torch.device("cpu")
+        return canonical_bounds(*(self._staged(k, cpu) for k in ("h_l", "h_u", "x_l", "x_u")))
 
     def update(self, P=None, c=None, A=None, b=None, G=None, h_l=None,
                h_u=None, x_l=None, x_u=None) -> None:
         """Update problem data in place (solver.hpp:218-359); shapes must
-        match the setup call.  Only the changed fields are canonicalized
-        and copied to the device."""
+        match the setup call.  Only the changed fields are canonicalized,
+        as the entry does, and copied to the device."""
+        from .batch import _shapes, _symmetric
+
         if self._data is None:
             raise RuntimeError("Solver not setup yet")
         t0 = time.perf_counter()
-        updates = dict(P=P, c=c, A=A, b=b, G=G, h_l=h_l, h_u=h_u,
-                       x_l=x_l, x_u=x_u)
-        for k, v in updates.items():
-            if v is not None:
-                self._raw[k] = v
-
-        d = self._data
-        np_dtype = self._np_dtype()
-        n, p, m = d.n, d.p, d.m
+        updates = {k: v for k, v in dict(P=P, c=c, A=A, b=b, G=G, h_l=h_l, h_u=h_u,
+                                          x_l=x_l, x_u=x_u).items() if v is not None}
+        raw = dict(self._raw, **updates)
+        if _shapes(raw) != self._shapes:
+            raise ValueError("the update differs in shape from the setup")
+        self._raw = raw
         new = {}
 
-        bounds_changed = any(
-            updates[k] is not None for k in ("h_l", "h_u", "x_l", "x_u")
-        )
-        if bounds_changed or updates["G"] is not None:
-            hl = _as_1d(self._raw.get("h_l"), m, np_dtype, -np.inf)
-            hu = _as_1d(self._raw.get("h_u"), m, np_dtype, np.inf)
-            xl = _as_1d(self._raw.get("x_l"), n, np_dtype, -np.inf)
-            xu = _as_1d(self._raw.get("x_u"), n, np_dtype, np.inf)
-            hl, hu, xl, xu, hl_m, hu_m, xl_m, xu_m, dead = _canon_bounds(
-                hl, hu, xl, xu
-            )
-            old_dead = self._dead
-            self._dead = dead
-            new.update(
-                h_l=self._tensor(hl), h_u=self._tensor(hu),
-                x_l=self._tensor(xl), x_u=self._tensor(xu),
-                hl_mask=self._tensor(hl_m), hu_mask=self._tensor(hu_m),
-                xl_mask=self._tensor(xl_m), xu_mask=self._tensor(xu_m),
-            )
-            if updates["G"] is None and not np.array_equal(dead, old_dead):
+        bounds_changed = bool(updates.keys() & {"h_l", "h_u", "x_l", "x_u"})
+        if bounds_changed or "G" in updates:
+            *bounds, dead = self._host_bounds()
+            names = ("h_l", "h_u", "x_l", "x_u", "hl_mask", "hu_mask", "xl_mask", "xu_mask")
+            new.update({k: t.to(self._device) for k, t in zip(names, bounds)})
+            if not torch.equal(dead, self._dead):
                 # the dead-row pattern changed: re-canonicalize G
-                updates["G"] = self._raw.get("G")
+                updates["G"] = raw["G"]
+            self._dead = dead
 
-        if updates["P"] is not None:
-            Pm = np.asarray(updates["P"], dtype=np_dtype)
-            if Pm.shape != (n, n):
-                raise ValueError(f"expected shape {(n, n)}, got {Pm.shape}")
-            new["P"] = self._tensor(_symmetrize(Pm))
-        if updates["A"] is not None:
-            new["A"] = self._tensor(_as_2d(updates["A"], p, n, np_dtype))
-        if updates["G"] is not None:
-            Gm = _as_2d(updates["G"], m, n, np_dtype)
-            if self._dead.any():
-                Gm = Gm.copy()
-                Gm[self._dead, :] = 0.0
-            new["G"] = self._tensor(Gm)
-        if updates["c"] is not None:
-            new["c"] = self._tensor(_as_1d(updates["c"], n, np_dtype, 0.0))
-        if updates["b"] is not None:
-            new["b"] = self._tensor(_as_1d(updates["b"], p, np_dtype, 0.0))
+        for k in updates.keys() & {"P", "A", "G", "c", "b"}:
+            new[k] = self._staged(k)
+        if "P" in new:
+            new["P"] = _symmetric(new["P"])
+        if "G" in new:
+            new["G"] = new["G"].masked_fill(self._dead[..., None].to(self._device), 0.0)
 
-        self._data = dataclasses.replace(d, **new)
+        self._data = dataclasses.replace(self._data, **new)
         if bounds_changed:
             self._cone = has_cone(self._data)
-        matrices_changed = any(updates[k] is not None for k in ("P", "A", "G"))
+        matrices_changed = bool(updates.keys() & {"P", "A", "G"})
         if matrices_changed and not self._settings.preconditioner_reuse_on_update:
             self._scaling = None  # recompute Ruiz on the next solve
         self._update_time = time.perf_counter() - t0

@@ -24,12 +24,12 @@ from . import multistage, ruiz, solver
 from .api import _route_backend, _solve_fresh, _warm_vars
 from .parallel.comm import all_gather_tree, require_group
 from .types import (
-    PIQP_INF,
     BasicVars,
     QPData,
     Result,
     Settings,
     Status,
+    canonical_bounds,
     concat,
     index,
     index_put,
@@ -38,8 +38,9 @@ from .types import (
 from .utils.profiling import annotate
 
 
-# ``prepare_batch`` calls by where the raw fields were staged: page-locked
-# memory (a CUDA target, copied without blocking) or pageable memory
+# entry calls (``prepare_batch`` and the stage entry) by where the raw
+# fields were staged: page-locked memory (a CUDA target, copied without
+# blocking) or pageable memory
 entry_batches_by_staging = {"pinned": 0, "pageable": 0}
 
 # the raw fields of a problem dict, in their order of validation, and what
@@ -85,27 +86,35 @@ def _stage(column: list, shape: tuple, fill: float, dtype, device, pinned: bool)
     return staging.to(device, non_blocking=True)
 
 
+def _enter(columns: dict, shapes: dict, dtype, device, canonical):
+    """An entry's work after its shape check: each field's column staged
+    once (``_stage``, page-locked for a CUDA device), then ``canonical`` on
+    the staged (B, ...) tensors on the device."""
+    device = resolve_device(device)
+    pinned = device.type == "cuda"
+    entry_batches_by_staging["pinned" if pinned else "pageable"] += 1
+    with annotate("piqp.entry.copy"):
+        staged = {k: _stage(col, shapes[k], _FILL.get(k, 0.0), dtype, device, pinned)
+                  for k, col in columns.items()}
+    with annotate("piqp.entry.canonical"):
+        return canonical(**staged)
+
+
+def _symmetric(P):
+    """P from its upper triangle (solver.hpp:182)."""
+    return torch.triu(P) + torch.triu(P, 1).mT
+
+
 def _canonical(P, c, A, b, G, h_l, h_u, x_l, x_u) -> QPData:
     """The masked representation of staged (B, ...) fields, elementwise on
-    their device: the upper triangle of P symmetrized, masks from the
-    PIQP_INF convention, dead rows of G zeroed with fake bounds [-1, 1],
-    exact zeros at inactive bounds (``api._canon_bounds`` per batch)."""
-    hl_mask = h_l > -PIQP_INF
-    hu_mask = h_u < PIQP_INF
-    dead = ~hl_mask & ~hu_mask
-    h_l = torch.where(dead, -1.0, h_l)
-    h_u = torch.where(dead, 1.0, h_u)
-    hl_mask = h_l > -PIQP_INF
-    hu_mask = h_u < PIQP_INF
-    xl_mask = x_l > -PIQP_INF
-    xu_mask = x_u < PIQP_INF
+    their device: the bounds by ``types.canonical_bounds``, the dead rows
+    of G zeroed, the upper triangle of P symmetrized."""
+    h_l, h_u, x_l, x_u, hl_mask, hu_mask, xl_mask, xu_mask, dead = canonical_bounds(
+        h_l, h_u, x_l, x_u)
     return QPData(
-        P=torch.triu(P) + torch.triu(P, 1).mT, c=c, A=A, b=b,
-        G=G.masked_fill(dead[..., None], 0.0),
-        h_l=torch.where(hl_mask, h_l, 0.0), h_u=torch.where(hu_mask, h_u, 0.0),
-        x_l=torch.where(xl_mask, x_l, 0.0), x_u=torch.where(xu_mask, x_u, 0.0),
-        x_b_scaling=torch.ones_like(c), hl_mask=hl_mask, hu_mask=hu_mask,
-        xl_mask=xl_mask, xu_mask=xu_mask,
+        P=_symmetric(P), c=c, A=A, b=b, G=G.masked_fill(dead[..., None], 0.0),
+        h_l=h_l, h_u=h_u, x_l=x_l, x_u=x_u, x_b_scaling=torch.ones_like(c),
+        hl_mask=hl_mask, hu_mask=hu_mask, xl_mask=xl_mask, xu_mask=xu_mask,
     )
 
 
@@ -117,8 +126,6 @@ def prepare_batch(
     the caller passes another).  The host checks shapes only; each field is
     stacked once into host staging, page-locked for a CUDA device, and
     copied once; the canonicalization runs on the (B, ...) tensors there."""
-    device = resolve_device(device)
-    pinned = device.type == "cuda"
     probs = [_fields(**prob) for prob in problems]
     if not probs:
         raise ValueError("no problems to stack")
@@ -126,12 +133,8 @@ def prepare_batch(
     for i, prob in enumerate(probs[1:], 1):
         if _shapes(prob) != shapes:
             raise ValueError(f"problem {i} differs in shape from problem 0")
-    entry_batches_by_staging["pinned" if pinned else "pageable"] += 1
-    with annotate("piqp.entry.copy"):
-        staged = {k: _stage([prob[k] for prob in probs], shapes[k], _FILL.get(k, 0.0),
-                            dtype, device, pinned) for k in _FIELDS}
-    with annotate("piqp.entry.canonical"):
-        return _canonical(**staged)
+    return _enter({k: [prob[k] for prob in probs] for k in _FIELDS}, shapes, dtype, device,
+                  _canonical)
 
 
 def prepare_stage_batch(
@@ -141,15 +144,12 @@ def prepare_stage_batch(
     keyword arguments of ``multistage.from_stage_blocks``: Pd, Psub, Pa, Pc,
     c and optionally A1, A2, Ag, b, G1, G2, Gg, h_l, h_u, x_l, x_u; one
     shape for all) into one batched ``StageQPData`` on ``device`` (CUDA
-    unless the caller passes another).  The canonicalization runs in numpy
-    and each field moves to the device once."""
-    device = resolve_device(device)
+    unless the caller passes another).  The host fills omitted fields;
+    each field is stacked once into host staging and copied once, and the
+    canonicalization runs on the (B, ...) tensors there."""
     np_dtype = np.dtype(str(dtype).removeprefix("torch."))
-    with annotate("piqp.entry.canonical"):
-        stacked = multistage._stack(
-            [multistage._stage_arrays(**prob, np_dtype=np_dtype) for prob in problems])
-    with annotate("piqp.entry.copy"):
-        return multistage._to_device(stacked, dtype, device)
+    return multistage.stage_data_from_arrays(
+        [multistage._stage_arrays(**prob, np_dtype=np_dtype) for prob in problems], dtype, device)
 
 
 def warm_from_result(res: Result) -> BasicVars:

@@ -34,9 +34,10 @@ precompute, factor, condensed_solve_x).  Each block function works on
 the stages its data holds (``StageQPData.owned``: all of them here) and
 joins the holders' pieces through three hooks, which
 ``parallel.horizon`` registers as collectives for data that holds one
-rank's stages.  Construction (from stage blocks or
-from a general sparse QP by host-side structure detection) is numpy and
-scipy work with one host-to-device copy per field.
+rank's stages.  Construction, from stage blocks or from a general sparse
+QP by host-side structure detection, is the dense entry's twin: each raw
+field is staged once on the host and copied once, and the masked
+representation is made on the device (``_canonical``).
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from . import kkt as kkt_mod
 from . import ruiz as ruiz_mod
 from .ops import matvec as mv
 from .ops.chol_inv import cholesky_inverse_apply
-from .types import PIQP_INF, QPData, Scaling, max0, resolve_device, select
+from .types import QPData, Scaling, canonical_bounds, max0, select
 from .utils.profiling import annotate
 
 
@@ -1020,145 +1021,65 @@ def _apply_scaling_stage(data: StageQPData, s: Scaling):
 # construction and conversion
 # ---------------------------------------------------------------------------
 
-_FLOAT_FIELDS = ("c", "b", "h_l", "h_u", "x_l", "x_u", "x_b_scaling") + _BLOCKS
-
-
 def _stage_arrays(Pd, Psub, Pa, Pc, c, A1=None, A2=None, Ag=None, b=None,
                   G1=None, G2=None, Gg=None, h_l=None, h_u=None, x_l=None,
                   x_u=None, np_dtype=np.float64) -> dict:
-    """One problem's canonical StageQPData fields as numpy arrays (the
-    analog of dense::Data construction and disable_inf_constraints)."""
+    """One problem's raw stage fields as numpy arrays of ``np_dtype`` (the
+    keyword arguments of ``from_stage_blocks``): each omitted one filled,
+    the vectors flat.  The masking is ``_canonical``'s, on the device."""
     Pd = np.asarray(Pd, np_dtype)
     T, D, _ = Pd.shape
     Pc = np.asarray(Pc, np_dtype) if Pc is not None else np.zeros((0, 0), np_dtype)
     Da = Pc.shape[0]
-    Psub = (np.array(Psub, np_dtype, copy=True) if Psub is not None
-            else np.zeros((T, D, D), np_dtype))
-    Psub[T - 1] = 0.0
-    Pa = np.asarray(Pa, np_dtype) if Pa is not None else np.zeros((T, Da, D), np_dtype)
-    n = T * D + Da
+    ra = 0 if A1 is None else np.shape(A1)[1]
+    rg = 0 if G1 is None else np.shape(G1)[1]
+    n, p, m = T * D + Da, T * ra, T * rg
 
-    def blocked(M1, M2, Mg, r):
-        def arr(M, shape):
-            return np.array(M, np_dtype, copy=True) if M is not None else np.zeros(shape, np_dtype)
+    def arr(M, shape, fill=0.0):
+        if M is None:
+            return np.full(shape, fill, np_dtype)
+        M = np.asarray(M, np_dtype)
+        return M.reshape(shape) if len(shape) == 1 else M
 
-        M1, M2, Mg = arr(M1, (T, r, D)), arr(M2, (T, r, D)), arr(Mg, (T, r, Da))
-        M2[T - 1] = 0.0
-        return M1, M2, Mg
-
-    ra = 0 if A1 is None else np.asarray(A1).shape[1]
-    rg = 0 if G1 is None else np.asarray(G1).shape[1]
-    A1, A2, Ag = blocked(A1, A2, Ag, ra)
-    G1, G2, Gg = blocked(G1, G2, Gg, rg)
-
-    p, m = T * ra, T * rg
-    b = np.zeros(p, np_dtype) if b is None else np.asarray(b, np_dtype).reshape(p)
-    h_l = np.full(m, -np.inf) if h_l is None else np.asarray(h_l, np_dtype).reshape(m)
-    h_u = np.full(m, np.inf) if h_u is None else np.asarray(h_u, np_dtype).reshape(m)
-    x_l = np.full(n, -np.inf) if x_l is None else np.asarray(x_l, np_dtype).reshape(n)
-    x_u = np.full(n, np.inf) if x_u is None else np.asarray(x_u, np_dtype).reshape(n)
-
-    hl_mask = h_l > -PIQP_INF
-    hu_mask = h_u < PIQP_INF
-    dead = ~hl_mask & ~hu_mask
-    if dead.any():
-        # disable_inf_constraints: zero the row, fake bounds [-1, 1]
-        dead_b = dead.reshape(T, rg)
-        G1[dead_b] = 0.0
-        G2[dead_b] = 0.0
-        Gg[dead_b] = 0.0
-        h_l = np.where(dead, -1.0, h_l)
-        h_u = np.where(dead, 1.0, h_u)
-        hl_mask = h_l > -PIQP_INF
-        hu_mask = h_u < PIQP_INF
-    xl_mask = x_l > -PIQP_INF
-    xu_mask = x_u < PIQP_INF
     return dict(
-        c=np.asarray(c, np_dtype).reshape(n), b=b,
-        h_l=np.where(hl_mask, h_l, 0.0), h_u=np.where(hu_mask, h_u, 0.0),
-        x_l=np.where(xl_mask, x_l, 0.0), x_u=np.where(xu_mask, x_u, 0.0),
-        x_b_scaling=np.ones(n, np_dtype),
-        hl_mask=hl_mask, hu_mask=hu_mask, xl_mask=xl_mask, xu_mask=xu_mask,
-        Pd=Pd, Psub=Psub, Pa=Pa, Pc=Pc, A1=A1, A2=A2, Ag=Ag, G1=G1, G2=G2, Gg=Gg,
+        Pd=Pd, Psub=arr(Psub, (T, D, D)), Pa=arr(Pa, (T, Da, D)), Pc=Pc,
+        A1=arr(A1, (T, ra, D)), A2=arr(A2, (T, ra, D)), Ag=arr(Ag, (T, ra, Da)),
+        G1=arr(G1, (T, rg, D)), G2=arr(G2, (T, rg, D)), Gg=arr(Gg, (T, rg, Da)),
+        c=arr(c, (n,)), b=arr(b, (p,)), h_l=arr(h_l, (m,), -np.inf),
+        h_u=arr(h_u, (m,), np.inf), x_l=arr(x_l, (n,), -np.inf), x_u=arr(x_u, (n,), np.inf),
     )
 
 
-def _pad_vectors(v: dict, T: int, D: int, ra: int, rg: int, T_pad: int) -> dict:
-    """The flat fields of ``v`` padded from T to T_pad stages, with the
-    values the JAX package's parallel.horizon.pad_stages gives them: zero
-    cost, unit x_b_scaling, no bounds on padded variables, and padded
-    inequality rows with the benign [-1, 1] bounds."""
-    extra = T_pad - T
-
-    def pad_t(u, fill):
-        return np.concatenate([u, np.full((extra,) + u.shape[1:], fill, u.dtype)], axis=0)
-
-    def pad_x(u, fill):
-        stage = pad_t(u[:T * D].reshape(T, D), fill)
-        return np.concatenate([stage.reshape(-1), u[T * D:]])
-
-    def pad_rows(u, r, fill):
-        return pad_t(u.reshape(T, r), fill).reshape(-1) if r else u
-
-    fills = dict(c=(pad_x, 0.0), x_b_scaling=(pad_x, 1.0), x_l=(pad_x, 0.0),
-                 x_u=(pad_x, 0.0), xl_mask=(pad_x, False), xu_mask=(pad_x, False))
-    rows = dict(b=(ra, 0.0), h_l=(rg, -1.0), h_u=(rg, 1.0), hl_mask=(rg, True),
-                hu_mask=(rg, True))
-    out = {}
-    for k, u in v.items():
-        if k in fills:
-            fn, fill = fills[k]
-            out[k] = fn(u, fill)
-        else:
-            r, fill = rows[k]
-            out[k] = pad_rows(u, r, fill)
-    return out
-
-
-def _pad_stage_arrays(a: dict, T_pad: int) -> dict:
-    """Append decoupled identity stages up to T_pad (the JAX package's
-    parallel.horizon.pad_stages): P = I, no couplings and no active
-    constraint rows, so each padded stage is an optimal x = 0."""
-    T, D = a["Pd"].shape[0], a["Pd"].shape[-1]
-    extra = T_pad - T
-    if extra == 0:
-        return a
-    ra, rg = a["A1"].shape[1], a["G1"].shape[1]
-
-    def pad_t(u):
-        return np.concatenate([u, np.zeros((extra,) + u.shape[1:], u.dtype)], axis=0)
-
-    out = {k: pad_t(a[k]) for k in ("Psub", "Pa", "A1", "A2", "Ag", "G1", "G2", "Gg")}
-    out["Pd"] = np.concatenate(
-        [a["Pd"], np.broadcast_to(np.eye(D, dtype=a["Pd"].dtype), (extra, D, D))], axis=0)
-    out["Pc"] = a["Pc"]
-    vec = {k: a[k] for k in a if k not in out}
-    out.update(_pad_vectors(vec, T, D, ra, rg, T_pad))
-    return out
-
-
-def _stack(arrays: list) -> dict:
-    """Per-problem canonical arrays (``_stage_arrays``) stacked field by
-    field on the host."""
-    return {f.name: np.stack([a[f.name] for a in arrays]) for f in dataclasses.fields(StageQPData)}
-
-
-def _to_device(stacked: dict, dtype=torch.float64, device=None) -> StageQPData:
-    """Stacked canonical arrays as one batched StageQPData on ``device``:
-    one host-to-device copy per field."""
-    device = resolve_device(device)
-
-    def tensor(k):
-        t = torch.as_tensor(np.ascontiguousarray(stacked[k]), device=device)
-        return t.to(dtype) if k in _FLOAT_FIELDS else t
-
-    return StageQPData(**{k: tensor(k) for k in stacked})
+def _canonical(Pd, Psub, Pa, Pc, A1, A2, Ag, G1, G2, Gg, c, b, h_l, h_u, x_l,
+               x_u) -> StageQPData:
+    """The masked representation of staged (B, ...) stage fields on their
+    device: the bounds by ``types.canonical_bounds``, the dead rows zeroed
+    in G1, G2 and Gg, and the last stage's couplings Psub, A2 and G2
+    zeroed (the staged tensors are the entry's own)."""
+    h_l, h_u, x_l, x_u, hl_mask, hu_mask, xl_mask, xu_mask, dead = canonical_bounds(
+        h_l, h_u, x_l, x_u)
+    for M in (Psub, A2, G2):
+        M[:, -1] = 0.0
+    dead = dead.reshape(*G1.shape[:-1], 1)
+    return StageQPData(
+        c=c, b=b, h_l=h_l, h_u=h_u, x_l=x_l, x_u=x_u, x_b_scaling=torch.ones_like(c),
+        hl_mask=hl_mask, hu_mask=hu_mask, xl_mask=xl_mask, xu_mask=xu_mask,
+        Pd=Pd, Psub=Psub, Pa=Pa, Pc=Pc, A1=A1, A2=A2, Ag=Ag, G1=G1.masked_fill(dead, 0.0),
+        G2=G2.masked_fill(dead, 0.0), Gg=Gg.masked_fill(dead, 0.0),
+    )
 
 
 def stage_data_from_arrays(arrays: list, dtype=torch.float64, device=None) -> StageQPData:
-    """Stack per-problem canonical arrays (``_stage_arrays``) into one
-    batched StageQPData on ``device``: one host-to-device copy per field."""
-    return _to_device(_stack(arrays), dtype, device)
+    """Per-problem raw arrays (``_stage_arrays``, one shape for all) as one
+    batched StageQPData on ``device``: as in ``batch.prepare_batch``, each
+    field stacked once into host staging and copied once (``batch._enter``),
+    then ``_canonical`` on the device."""
+    from .batch import _enter
+
+    if not arrays:
+        raise ValueError("no problems to stack")
+    return _enter({k: [a[k] for a in arrays] for k in arrays[0]},
+                  {k: v.shape for k, v in arrays[0].items()}, dtype, device, _canonical)
 
 
 def from_stage_blocks(
@@ -1172,6 +1093,54 @@ def from_stage_blocks(
     arrays = _stage_arrays(Pd, Psub, Pa, Pc, c, A1, A2, Ag, b, G1, G2, Gg,
                            h_l, h_u, x_l, x_u, np_dtype)
     return stage_data_from_arrays([arrays], dtype, device)
+
+
+def _pad_t(a, extra: int, fill=0.0):
+    """(B, T, ...) -> (B, T + extra, ...), the new stages all ``fill``."""
+    return torch.cat([a, a.new_full((a.shape[0], extra) + a.shape[2:], fill)], dim=1)
+
+
+def _pad_flat(v: dict, T: int, D: int, ra: int, rg: int, T_pad: int) -> dict:
+    """The flat (B, ...) fields of ``v`` padded from T to T_pad stages, as
+    ``pad_stages`` pads them: zero cost, unit x_b_scaling, no bounds on
+    padded variables, padded inequality rows with the [-1, 1] bounds of a
+    dead row."""
+    extra = T_pad - T
+
+    def pad_x(u, fill):  # flat x layout: [T*D stage coords, Da arrow coords]
+        stage = _pad_t(u[:, :T * D].reshape(-1, T, D), extra, fill)
+        return torch.cat([stage.flatten(1), u[:, T * D:]], dim=1)
+
+    def pad_rows(u, r, fill):
+        return _pad_t(u.reshape(-1, T, r), extra, fill).flatten(1) if r else u
+
+    fills = dict(c=0.0, x_b_scaling=1.0, x_l=0.0, x_u=0.0, xl_mask=False, xu_mask=False)
+    rows = dict(b=(ra, 0.0), h_l=(rg, -1.0), h_u=(rg, 1.0), hl_mask=(rg, True),
+                hu_mask=(rg, True))
+    return {k: pad_x(u, fills[k]) if k in fills else pad_rows(u, *rows[k])
+            for k, u in v.items()}
+
+
+def pad_stages(data: StageQPData, T_pad: int) -> StageQPData:
+    """Append decoupled identity stages up to T_pad (``horizon.py:104-155``
+    of the JAX package), on the data's device: P = I, no couplings, padded
+    inequality rows with the benign [-1, 1] bounds of a dead row, so each
+    padded stage is an isolated, already optimal x = 0."""
+    T, D, B = data.T, data.D, data.B
+    if T_pad < T:
+        raise ValueError(f"T_pad={T_pad} < T={T}")
+    if T_pad == T:
+        return data
+    extra = T_pad - T
+    eye = torch.eye(D, dtype=data.Pd.dtype, device=data.Pd.device)
+    flat = {f.name: getattr(data, f.name) for f in dataclasses.fields(StageQPData)
+            if f.name not in _BLOCKS}
+    return dataclasses.replace(
+        data,
+        Pd=torch.cat([data.Pd, eye.expand(B, extra, D, D)], dim=1),
+        **{k: _pad_t(getattr(data, k), extra) for k in STAGE_BLOCKS if k != "Pd"},
+        **_pad_flat(flat, T, D, data.ra, data.rg, T_pad),
+    )
 
 
 def to_dense(data: StageQPData) -> QPData:
@@ -1345,7 +1314,7 @@ class StageLayout:
     waste: float = 1.0
     cache: Optional[_ScatterCache] = None
     # dead-row pattern (both bounds infinite) of the unpadded stage rows
-    dead: Optional[np.ndarray] = None
+    dead: Optional[torch.Tensor] = None
 
 
 def _reblock_uniform(S, is_arrow, starts, sizes):
@@ -1519,9 +1488,9 @@ def from_sparse(
     return _assemble(P, c, A, b, G, h_l, h_u, x_l, x_u, cache, dtype, device)
 
 
-def _flat_vectors(cache: _ScatterCache, c, b, h_l, h_u, x_l, x_u):
-    """User vectors scattered into the (unpadded) stage layout; padded
-    inequality rows get the benign [-1, 1] bounds."""
+def _flat_vectors(cache: _ScatterCache, c, b, h_l, h_u, x_l, x_u) -> dict:
+    """User vectors scattered into the (unpadded) stage layout, float64;
+    padded inequality rows get the benign [-1, 1] bounds."""
     T, D, Da = cache.T, cache.D, cache.Da
     inf = np.inf
     c_f = np.zeros(T * D + Da)
@@ -1540,7 +1509,18 @@ def _flat_vectors(cache: _ScatterCache, c, b, h_l, h_u, x_l, x_u):
         xl_f[cache.var_map] = np.asarray(x_l, np.float64).ravel()
     if x_u is not None:
         xu_f[cache.var_map] = np.asarray(x_u, np.float64).ravel()
-    return c_f, b_f, hl_f, hu_f, xl_f, xu_f
+    return dict(c=c_f, b=b_f, h_l=hl_f, h_u=hu_f, x_l=xl_f, x_u=xu_f)
+
+
+def _canonical_vectors(v: dict) -> tuple:
+    """The vectors of ``_flat_vectors`` canonical on the host in float64,
+    as (1, ...) tensors, and their dead-row mask (the JAX package decides
+    ``update_vectors``' dead pattern in float64)."""
+    *bounds, dead = canonical_bounds(*(torch.from_numpy(v[k])[None]
+                                       for k in ("h_l", "h_u", "x_l", "x_u")))
+    names = ("h_l", "h_u", "x_l", "x_u", "hl_mask", "hu_mask", "xl_mask", "xu_mask")
+    return dict(c=torch.from_numpy(v["c"])[None], b=torch.from_numpy(v["b"])[None],
+                **dict(zip(names, bounds))), dead
 
 
 def _assemble(P, c, A, b, G, h_l, h_u, x_l, x_u, cache, dtype, device):
@@ -1568,13 +1548,12 @@ def _assemble(P, c, A, b, G, h_l, h_u, x_l, x_u, cache, dtype, device):
 
     A1, A2, Ag = constr(A, cache.a_bucket, cache.a_slot, cache.ra if cache.p else 0)
     G1, G2, Gg = constr(G, cache.g_bucket, cache.g_slot, cache.rg if cache.m else 0)
-    c_f, b_f, hl_f, hu_f, xl_f, xu_f = _flat_vectors(cache, c, b, h_l, h_u, x_l, x_u)
+    v = _flat_vectors(cache, c, b, h_l, h_u, x_l, x_u)
 
     np_dtype = np.dtype(str(dtype).removeprefix("torch."))
-    arrays = _stage_arrays(Pd, Psub, Pa, Pc, c_f, A1, A2, Ag, b_f, G1, G2, Gg,
-                           hl_f, hu_f, xl_f, xu_f, np_dtype)
-    arrays = _pad_stage_arrays(arrays, cache.T_pad)
-    sdata = stage_data_from_arrays([arrays], dtype, device)
+    arrays = _stage_arrays(Pd, Psub, Pa, Pc, A1=A1, A2=A2, Ag=Ag, G1=G1, G2=G2, Gg=Gg,
+                           np_dtype=np_dtype, **v)
+    sdata = pad_stages(stage_data_from_arrays([arrays], dtype, device), cache.T_pad)
 
     var_map = cache.var_map
     if cache.T_pad != T:
@@ -1584,7 +1563,7 @@ def _assemble(P, c, A, b, G, h_l, h_u, x_l, x_u, cache, dtype, device):
         n=n, p=cache.p, m=cache.m,
         waste=float(sdata.T * sdata.D) / max(1, n - Da),
         cache=cache,
-        dead=~(hl_f > -PIQP_INF) & ~(hu_f < PIQP_INF),
+        dead=_canonical_vectors(v)[1],
     )
     return sdata, layout
 
@@ -1615,26 +1594,10 @@ def update_vectors(layout: StageLayout, sdata: StageQPData, c, b=None, h_l=None,
     cache = layout.cache
     if cache is None or layout.dead is None:
         raise ValueError("layout has no scatter cache (not from from_sparse)")
-    c_f, b_f, hl_f, hu_f, xl_f, xu_f = _flat_vectors(cache, c, b, h_l, h_u, x_l, x_u)
-    new_dead = ~(hl_f > -PIQP_INF) & ~(hu_f < PIQP_INF)
-    if (new_dead != layout.dead).any():
+    vecs, dead = _canonical_vectors(_flat_vectors(cache, c, b, h_l, h_u, x_l, x_u))
+    if not torch.equal(dead, layout.dead):
         return None
-    # dead rows keep the benign [-1, 1] bounds (their G rows are already 0)
-    hl_f = np.where(new_dead, -1.0, hl_f)
-    hu_f = np.where(new_dead, 1.0, hu_f)
-    hl_mask, hu_mask = hl_f > -PIQP_INF, hu_f < PIQP_INF
-    xl_mask, xu_mask = xl_f > -PIQP_INF, xu_f < PIQP_INF
-    vecs = dict(
-        c=c_f, b=b_f, h_l=np.where(hl_mask, hl_f, 0.0), h_u=np.where(hu_mask, hu_f, 0.0),
-        x_l=np.where(xl_mask, xl_f, 0.0), x_u=np.where(xu_mask, xu_f, 0.0),
-        hl_mask=hl_mask, hu_mask=hu_mask, xl_mask=xl_mask, xu_mask=xu_mask,
-    )
-    if cache.T_pad != cache.T:
-        vecs = _pad_vectors(vecs, cache.T, cache.D, cache.ra, cache.rg, cache.T_pad)
+    vecs = _pad_flat(vecs, cache.T, cache.D, cache.ra, cache.rg, cache.T_pad)
     dt, dev = sdata.c.dtype, sdata.c.device
-
-    def tensor(k, v):
-        t = torch.as_tensor(np.ascontiguousarray(v)[None], device=dev)
-        return t.to(dt) if t.is_floating_point() else t
-
-    return dataclasses.replace(sdata, **{k: tensor(k, v) for k, v in vecs.items()})
+    return dataclasses.replace(sdata, **{
+        k: v.to(dev, dt) if v.is_floating_point() else v.to(dev) for k, v in vecs.items()})

@@ -81,7 +81,7 @@ import torch
 from .. import kkt as kkt_mod
 from .. import multistage as ms
 from ..api import _solve_fresh, _warm_vars
-from ..multistage import STAGE_BLOCKS, StageQPData
+from ..multistage import STAGE_BLOCKS, StageQPData, pad_stages
 from ..types import Result, Settings
 from ..utils.profiling import annotate
 from .comm import (
@@ -119,43 +119,6 @@ class ShardedStageQPData(StageQPData):
     @property
     def owned(self) -> slice:
         return slice(*self.stages)
-
-
-def pad_stages(data: StageQPData, T_pad: int) -> StageQPData:
-    """Append decoupled identity stages up to T_pad (``horizon.py:104-155``
-    of the JAX package), on the data's device: P = I, no couplings, padded
-    inequality rows with the benign [-1, 1] bounds of a dead row, so each
-    padded stage is an isolated, already optimal x = 0."""
-    T, D, B = data.T, data.D, data.B
-    if T_pad < T:
-        raise ValueError(f"T_pad={T_pad} < T={T}")
-    if T_pad == T:
-        return data
-    extra = T_pad - T
-
-    def pad_t(a, fill=0.0):  # (B, T, ...) -> (B, T_pad, ...)
-        return torch.cat([a, a.new_full((B, extra) + a.shape[2:], fill)], dim=1)
-
-    def pad_x(v, fill=0.0):  # flat x layout: [T*D stage coords, Da arrow coords]
-        stage = pad_t(v[:, :T * D].reshape(B, T, D), fill)
-        return torch.cat([stage.flatten(1), v[:, T * D:]], dim=1)
-
-    def pad_rows(v, r, fill=0.0):
-        return pad_t(v.reshape(B, T, r), fill).flatten(1) if r else v
-
-    eye = torch.eye(D, dtype=data.Pd.dtype, device=data.Pd.device)
-    ra, rg = data.ra, data.rg
-    return dataclasses.replace(
-        data,
-        Pd=torch.cat([data.Pd, eye.expand(B, extra, D, D)], dim=1),
-        **{k: pad_t(getattr(data, k)) for k in STAGE_BLOCKS if k != "Pd"},
-        c=pad_x(data.c), x_b_scaling=pad_x(data.x_b_scaling, 1.0),
-        x_l=pad_x(data.x_l), x_u=pad_x(data.x_u),
-        xl_mask=pad_x(data.xl_mask, False), xu_mask=pad_x(data.xu_mask, False),
-        b=pad_rows(data.b, ra), h_l=pad_rows(data.h_l, rg, -1.0),
-        h_u=pad_rows(data.h_u, rg, 1.0), hl_mask=pad_rows(data.hl_mask, rg, True),
-        hu_mask=pad_rows(data.hu_mask, rg, True),
-    )
 
 
 def shard_horizon(data: StageQPData, group=None, chunks: Optional[int] = None,

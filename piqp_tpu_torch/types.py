@@ -341,6 +341,27 @@ class QPData:
         return self.G.shape[-2]
 
 
+def canonical_bounds(h_l, h_u, x_l, x_u) -> tuple:
+    """The bounds of the masked representation, elementwise on any leading
+    shape and device: masks from the PIQP_INF convention (dense/data.hpp:
+    100-142), fake bounds [-1, 1] on dead rows, those with both inequality
+    bounds inactive (dense/data.hpp:144-169), and exact zeros at inactive
+    bounds.  Returns (h_l, h_u, x_l, x_u, hl_mask, hu_mask, xl_mask,
+    xu_mask, dead); each caller zeroes the dead rows of its own G layout."""
+    hl_mask = h_l > -PIQP_INF
+    hu_mask = h_u < PIQP_INF
+    dead = ~hl_mask & ~hu_mask
+    h_l = torch.where(dead, -1.0, h_l)
+    h_u = torch.where(dead, 1.0, h_u)
+    hl_mask = h_l > -PIQP_INF
+    hu_mask = h_u < PIQP_INF
+    xl_mask = x_l > -PIQP_INF
+    xu_mask = x_u < PIQP_INF
+    return (torch.where(hl_mask, h_l, 0.0), torch.where(hu_mask, h_u, 0.0),
+            torch.where(xl_mask, x_l, 0.0), torch.where(xu_mask, x_u, 0.0),
+            hl_mask, hu_mask, xl_mask, xu_mask, dead)
+
+
 @dataclasses.dataclass
 class FullKKTQPData(QPData):
     """``QPData`` that routes the KKT layer to the full 3-block dense LU
@@ -495,9 +516,3 @@ class Scaling:
     d_z: torch.Tensor
     d_b: torch.Tensor
 
-
-def identity_scaling(B: int, n: int, p: int, m: int, dtype, device) -> Scaling:
-    def o(*shape):
-        return torch.ones((B,) + shape, dtype=dtype, device=device)
-
-    return Scaling(o(), o(n), o(p), o(m), o(n))

@@ -2,20 +2,27 @@
 the JAX package's ``prepare_batch`` / ``prepare_data``: every field of the
 canonical batch bitwise equal, masks included, over the edge cases of the
 canonicalisation, and the same ``ValueError`` for each malformed input.
+The stage entry (``batch.prepare_stage_batch``,
+``multistage.from_stage_blocks``) against the JAX package's
+``from_stage_blocks`` over the stage versions of those cases, and
+``DenseSolver.update`` against a fresh entry of the merged fields.
 
-The test marked ``card`` holds the CUDA entry (pinned staging, copies that
-do not block, the canonicalisation on the card) against the CPU one and
-skips without a CUDA device.  JAX is imported inside the parity tests only,
-so that one runs where JAX is not installed:
+The test marked ``card`` holds the CUDA entries (pinned staging, copies
+that do not block, the canonicalisation on the card) against the CPU ones
+and skips without a CUDA device.  JAX is imported inside the parity tests
+only, so that one runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_entry.py -m card
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from piqp_tpu_torch import batch, prepare_batch, prepare_data
+from piqp_tpu_torch import (DenseSolver, Settings, batch, multistage, prepare_batch,
+                            prepare_data, prepare_stage_batch)
 from piqp_tpu_torch.utils.random import dense_strongly_convex_qp
 
 FIELDS = ("P", "c", "A", "b", "G", "h_l", "h_u", "x_l", "x_u", "x_b_scaling",
@@ -189,25 +196,138 @@ def test_entry_raises_as_before(case):
             prepare_data(**probs[1], device="cpu")
 
 
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_update_is_a_fresh_entry(case, dtype):
+    """``DenseSolver.update`` of a case's vectors, then of its matrices,
+    leaves the data of a fresh ``prepare_data`` of the merged raw fields,
+    bitwise; the bound updates move the dead rows of G both ways."""
+    base, edited = _base(1, seed=40)[0], _edit(_base(1, seed=40), CASES[case])[0]
+    solver = DenseSolver(Settings(dtype=dtype), device="cpu")
+    solver.setup(**_edit([base], _dead)[0])
+    merged = dict(solver._raw)
+    for part in (("c", "b", "h_l", "h_u", "x_l", "x_u"), ("P", "A", "G")):
+        given = {k: edited[k] for k in part if k in edited}
+        solver.update(**given)
+        merged.update(given)
+        fresh = prepare_data(**merged, dtype=getattr(torch, dtype), device="cpu")
+        for f in FIELDS:
+            _same(getattr(solver._data, f), getattr(fresh, f).numpy(), f)
+
+
+def test_update_raises_on_shapes():
+    solver = DenseSolver(device="cpu")
+    solver.setup(**_base(1)[0])
+    with pytest.raises(ValueError, match=r"expected shape \(6,\), got \(5,\)"):
+        solver.update(c=np.zeros(5))
+    with pytest.raises(ValueError, match="differs in shape from the setup"):
+        solver.update(**dense_strongly_convex_qp(7, 2, 5, seed=1))
+
+
+# the stage entry: random stage problems with x bounds, and garbage in the
+# last stage's couplings, which the entry zeroes
+STAGE_DIMS = dict(T=6, D=4, Da=1, ra=2, rg=2)
+
+
+def _stage_base(count, seed=0):
+    probs = []
+    for i in range(count):
+        prob = multistage.random_multistage_arrays(**STAGE_DIMS, seed=seed + i)
+        rng = np.random.default_rng(seed + i)
+        n = prob["c"].size
+        prob.update(x_l=rng.uniform(-2, -1, n), x_u=rng.uniform(1, 2, n))
+        for k in ("Psub", "A2", "G2"):
+            prob[k][-1] = rng.uniform(-1, 1, prob[k].shape[1:])
+        probs.append(prob)
+    return probs
+
+
+def _stage_no_a(i, prob):
+    prob["A1"] = prob["A2"] = prob["Ag"] = prob["b"] = None
+
+
+def _stage_no_g(i, prob):
+    prob["G1"] = prob["G2"] = prob["Gg"] = prob["h_l"] = prob["h_u"] = None
+
+
+def _stage_omit(i, prob):
+    """Optional blocks and bounds left out by some problems of the batch."""
+    if i % 2 == 0:
+        prob["G2"] = prob["Ag"] = prob["x_l"] = None
+    if i % 3 == 1:
+        prob["A2"] = prob["Gg"] = prob["h_u"] = None
+
+
+STAGE_CASES = {
+    "inf_bounds": lambda i, prob: None,
+    "huge_bounds": _huge,
+    "dead_rows": _dead,
+    "zero_bounds": _zeros,
+    "no_A": _stage_no_a,
+    "no_G": _stage_no_g,
+    "some_omit": _stage_omit,
+    "lists": _lists,
+    "float32_inputs": _float32,
+}
+
+
+def _same_stage(got: torch.Tensor, want, what: str):
+    """``_same``, where the JAX package keeps a float32 problem's omitted
+    bound in float64: its values must then be exact in float32."""
+    want = np.array(want)
+    if got.is_floating_point() and want.dtype != got.numpy().dtype:
+        cast = want.astype(got.numpy().dtype)
+        assert np.array_equal(cast.astype(want.dtype), want, equal_nan=True), what
+        want = cast
+    _same(got, want, what)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("case", list(STAGE_CASES))
+def test_stage_entry_is_the_jax_entry_bitwise(case, dtype, B):
+    import jax.numpy as jnp
+    from piqp_tpu import multistage as jms
+
+    probs = _edit(_stage_base(B, seed=10 * B), STAGE_CASES[case])
+    before = dict(batch.entry_batches_by_staging)
+    got = prepare_stage_batch(probs, dtype=getattr(torch, dtype), device="cpu")
+    for i, prob in enumerate(probs):
+        want = jms.from_stage_blocks(**prob, dtype=getattr(jnp, dtype))
+        for f in dataclasses.fields(multistage.StageQPData):
+            _same_stage(getattr(got, f.name)[i], getattr(want, f.name), f.name)
+    if B == 1:
+        one = multistage.from_stage_blocks(**probs[0], dtype=getattr(torch, dtype),
+                                           device="cpu")
+        for f in dataclasses.fields(multistage.StageQPData):
+            _same(getattr(one, f.name), getattr(got, f.name).numpy(), f.name)
+    calls = 2 if B == 1 else 1
+    assert batch.entry_batches_by_staging == dict(before, pageable=before["pageable"] + calls)
+
+
 @pytest.mark.card
 def test_card_entry_is_the_cpu_entry():
-    """64 of dense128's problems: the CUDA entry bitwise the CPU one, one
-    pinned batch a call, and a second call of the shape pins no new host
-    memory (the caching host allocator reuses the first call's blocks)."""
+    """64 of dense128's problems, then 64 stage problems: each CUDA entry
+    bitwise its CPU one, one pinned batch a call, and a second call of the
+    shape pins no new host memory (the caching host allocator reuses the
+    first call's blocks)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    probs = [dense_strongly_convex_qp(128, 64, 64, seed=i) for i in range(64)]
-    cpu = prepare_batch(probs, device="cpu")
     stats = getattr(torch.cuda.memory, "host_memory_stats", None)
-    allocs = []
-    for _ in range(2):
-        before = dict(batch.entry_batches_by_staging)
-        got = prepare_batch(probs, device="cuda")
-        torch.cuda.synchronize()
-        assert batch.entry_batches_by_staging == dict(before, pinned=before["pinned"] + 1)
-        for f in FIELDS:
-            _same(getattr(got, f).cpu(), getattr(cpu, f).numpy(), f)
+    dense = [dense_strongly_convex_qp(128, 64, 64, seed=i) for i in range(64)]
+    stage_fields = [f.name for f in dataclasses.fields(multistage.StageQPData)]
+    for enter, probs, fields in ((prepare_batch, dense, FIELDS),
+                                 (prepare_stage_batch, _stage_base(64), stage_fields)):
+        cpu = enter(probs, device="cpu")
+        allocs = []
+        for _ in range(2):
+            before = dict(batch.entry_batches_by_staging)
+            got = enter(probs, device="cuda")
+            torch.cuda.synchronize()
+            assert batch.entry_batches_by_staging == dict(before, pinned=before["pinned"] + 1)
+            for f in fields:
+                _same(getattr(got, f).cpu(), getattr(cpu, f).numpy(), f)
+            if stats is not None:
+                allocs.append(stats().get("num_host_alloc"))
         if stats is not None:
-            allocs.append(stats().get("num_host_alloc"))
-    if stats is not None:
-        assert allocs[0] is not None and allocs[1] == allocs[0], allocs
+            assert allocs[0] is not None and allocs[1] == allocs[0], (enter.__name__, allocs)

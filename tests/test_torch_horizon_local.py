@@ -12,8 +12,8 @@ process.  Each function runs on every rank at once; every rank's whole
 result (the flat vectors, Kc, the scalings) must equal every other
 rank's bit for bit, as the replicated IPM loop needs.
 
-Also here: ``pad_stages`` on the device against the host padding it
-replaced, exactly.
+Also here: ``pad_stages`` on the device against the JAX package's,
+exactly.
 """
 
 import dataclasses
@@ -303,18 +303,24 @@ def test_collectives_count_and_reduce(sim):
 
 
 @pytest.mark.parametrize("T,T_pad", [(5, 8), (8, 12)])
-def test_pad_stages_on_the_device_equals_the_host_padding(T, T_pad):
-    """``pad_stages`` pads with torch ops on the data's device; the host
-    padding it replaced (``multistage._pad_stage_arrays``, one problem at
-    a time through numpy) gives exactly the same tensors."""
-    data = tms.random_multistage_batch([4, 5], T=T, D=3, Da=2, ra=2, rg=2, device="cpu")
-    got = pad_stages(data, T_pad)
-    names = [f.name for f in dataclasses.fields(tms.StageQPData)]
-    host = tms.stage_data_from_arrays(
-        [tms._pad_stage_arrays({k: getattr(data, k)[b].numpy() for k in names}, T_pad)
-         for b in range(data.B)], dtype=torch.float64, device="cpu")
+def test_pad_stages_is_the_jax_padding(T, T_pad):
+    """``pad_stages`` of a batch of two, with torch ops on the data's
+    device, gives each problem the JAX package's ``pad_stages`` exactly
+    (signs of zero included); no process group is involved."""
+    from piqp_tpu import multistage as jms
+    from piqp_tpu.parallel import pad_stages as jpad_stages
+
+    seeds = [4, 5]
+    got = pad_stages(tms.random_multistage_batch(seeds, T=T, D=3, Da=2, ra=2, rg=2,
+                                                 device="cpu"), T_pad)
     assert got.T == T_pad
-    for k in names:
-        a, b = getattr(got, k), getattr(host, k)
-        assert a.dtype == b.dtype and a.shape == b.shape, k
-        assert torch.equal(a, b), k
+    for i, seed in enumerate(seeds):
+        want = jpad_stages(jms.random_multistage_qp(T=T, D=3, Da=2, ra=2, rg=2, seed=seed),
+                           T_pad)
+        for f in dataclasses.fields(tms.StageQPData):
+            a = getattr(got, f.name)[i]
+            b = torch.from_numpy(np.array(getattr(want, f.name)))
+            assert a.dtype == b.dtype and a.shape == b.shape, f.name
+            assert torch.equal(a, b), f.name
+            if a.is_floating_point():
+                assert torch.equal(a.signbit(), b.signbit()), f.name

@@ -88,6 +88,16 @@ def test_prepare_batch_spans():
     assert spans[0][2] <= spans[1][1]
 
 
+def test_stage_entry_spans_as_the_dense_entry():
+    """The stage entry opens the dense entry's spans, in the same order."""
+    probs = [piqp_tpu_torch.multistage.random_multistage_arrays(6, 3, 1, 2, 2, seed=s)
+             for s in range(3)]
+    data, spans = _traced(lambda: piqp_tpu_torch.prepare_stage_batch(probs, device="cpu"))
+    assert data.B == 3
+    assert [s[0] for s in spans] == ["piqp.entry.copy", "piqp.entry.canonical"]
+    assert spans[0][2] <= spans[1][1]
+
+
 def test_prepare_batch_counts_its_staging():
     before = dict(batch.entry_batches_by_staging)
     for calls in (1, 2):
