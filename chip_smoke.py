@@ -62,11 +62,21 @@ Phases:
      name; wrong-sign poisoning on a one-block and a clustered shape; times
      and bounds at the fleet's shape (the resident kernel at B = 256 and
      B = 64, the blocked route and the plain version);
+  2c. the Ruiz pass kernels (csrc/ruiz_norms.cu: the dense and stage
+     norms, the step, the dense and stage scaling) against their plain
+     versions, bit for bit, float32 and float64, at dense128's shape
+     (B = 1024, n = 128, p = m = 64) and chainmass5's (B = 1024, T = 40,
+     D = 24, ra = 21, Da = rg = 0; the step at its widths n = 960,
+     p + m = 840), a fifth of the problems inactive; each kernel's ms, the
+     plain version's and the bound (bytes at the data sheet's bandwidth);
+     then ``ruiz.equilibrate`` of a chainmass5-shaped stage batch with its
+     launches counted: one norm, step and scale launch a pass;
   3. main path: 1024 problems dense_strongly_convex_qp(128, 64, 64,
      seed=1000+i) (the benchmarks/make_batch.py set), cold with
      mixed precision and one warm re-solve round, with K1 launch counts
-     per dtype and per route (all resident) and a host-side KKT optimality
-     check of every result;
+     per dtype and per route (all resident), the Ruiz kernels' launches
+     (10 norm, step and scale launches a round) and a host-side KKT
+     optimality check of every result;
   4. float64 batch (B = 64), one DenseSolver on the card, and the first 8
      problems run again on the CPU (plain versions), in float64 and with
      mixed precision;
@@ -193,6 +203,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 
 MAIN_B, MAIN_N, MAIN_P, MAIN_M = 1024, 128, 64, 64
+# phase 2c: chainmass5's stage shape, T, D, ra (Da = rg = 0)
+RUIZ_STAGE = (40, 24, 21)
 # phase 16: the n = 256 dense fleet (benchmarks/make_batch.py's
 # batch_problems(256, 256), p = m = n / 2), above K1's resident limit in
 # both dtypes, its float64 batch, and one float64 DenseSolver at n = 200,
@@ -440,7 +452,11 @@ def _check_round(problems, res, what: str) -> float:
 
 def _reset_counts() -> None:
     """Zero the launch counts of every kernel wrapper."""
-    from piqp_tpu_torch.ops import chol_inv, signed_chol_inv
+    from piqp_tpu_torch.ops import chol_inv, ruiz_norms, signed_chol_inv
+
+    ruiz_norms.launches_by_shape.clear()
+    for k in ruiz_norms.pass_launches_by_kind:
+        ruiz_norms.pass_launches_by_kind[k] = 0
 
     for counts in (chol_inv.launches_by_dtype, chol_inv.launches_by_route,
                    chol_inv.launches_by_cluster,
@@ -703,6 +719,141 @@ def _check_k2(torch, smi) -> list:
             replaces="piqp_tpu/ops/pallas_chol.py:270",
             launches=None, max_abs_err=worst_route["split"], **sp_t,
         ))
+    return entries
+
+
+def _ruiz_stage_batch(torch, B, T, D, ra, seed):
+    """A random float64 stage batch of chainmass5's shape (no arrow, no G;
+    the last stage couples to none)."""
+    from piqp_tpu_torch import multistage
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    f64 = torch.float64
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, dtype=f64, device="cuda")
+
+    Pd = rnd(B, T, D, D)
+    Pd = Pd @ Pd.mT + D * torch.eye(D, dtype=f64, device="cuda")
+    Psub, A2 = rnd(B, T, D, D), rnd(B, T, ra, D)
+    Psub[:, -1], A2[:, -1] = 0.0, 0.0
+    n, p = T * D, T * ra
+    inf = torch.full((B, n), float("inf"), dtype=f64, device="cuda")
+    empty = torch.zeros((B, 0), dtype=f64, device="cuda")
+    nob = torch.zeros((B, n), dtype=torch.bool, device="cuda")
+    return multistage.StageQPData(
+        c=rnd(B, n), b=rnd(B, p), h_l=empty, h_u=empty, x_l=-inf, x_u=inf,
+        x_b_scaling=torch.ones((B, n), dtype=f64, device="cuda"),
+        hl_mask=empty.bool(), hu_mask=empty.bool(), xl_mask=nob, xu_mask=nob,
+        Pd=Pd, Psub=Psub, Pa=rnd(B, T, 0, D), Pc=rnd(B, 0, 0), A1=rnd(B, T, ra, D), A2=A2,
+        Ag=rnd(B, T, ra, 0), G1=rnd(B, T, 0, D), G2=rnd(B, T, 0, D), Gg=rnd(B, T, 0, 0))
+
+
+def _check_ruiz(torch, smi) -> list:
+    """Phase 2c: each Ruiz pass kernel bitwise its plain version at the
+    cells' shapes, its ms, the plain version's and the bound; then the
+    stage registration's launches a pass."""
+    from piqp_tpu_torch import ruiz
+    from piqp_tpu_torch.ops import ruiz_norms as rn
+
+    B, n, p, m = MAIN_B, MAIN_N, MAIN_P, MAIN_M
+    T, D, ra = RUIZ_STAGE
+    g = torch.Generator(device="cuda").manual_seed(25)
+    entries = []
+
+    def check(label, got, want):
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, want)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"Ruiz {label}: output {i} differs from its plain version")
+
+    def entry(name, shape, nbytes, dtype, kernel, plain):
+        ms, plain_ms = _time_ms(torch, kernel), _time_ms(torch, plain, count=3)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        dt = str(dtype).removeprefix("torch.")
+        print(f"[Ruiz {name} {dt}] {shape}: bitwise its plain version; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes), kernel/bound "
+              f"{ms / bound_ms:.2f}x; {smi}")
+        entries.append(dict(name=f"ruiz_{name}_{dt}", route="cuda", kernel_route="ruiz",
+                            source="piqp_tpu_torch/csrc/ruiz_norms.cu", replaces=None,
+                            shape=shape, launches=None, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by="bytes"))
+
+    for dtype in (torch.float32, torch.float64):
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, dtype=torch.float64, device="cuda").to(dtype)
+
+        def pos(*shape):  # factors near 1: the timing loops scale in place
+            return torch.rand(shape, generator=g, dtype=torch.float64, device="cuda").mul(
+                0.2).add(0.9).to(dtype)
+
+        on = torch.arange(B, device="cuda") % 5 != 3
+        esz = torch.finfo(dtype).bits // 8
+        mats = (rnd(B, n, n), rnd(B, p, n), rnd(B, m, n))
+        nbytes = sum(M.numel() for M in mats) * esz
+        shape = f"B={B} n={n} p={p} m={m}"
+        check("dense norms", [rn.dense_norms(*mats, on)], [rn.dense_norms_reference(*mats, on)])
+        entry("norms_dense", shape, nbytes, dtype, lambda: rn.dense_norms(*mats, on),
+              lambda: rn.dense_norms_reference(*mats, on))
+        f = (pos(B, n), pos(B, p), pos(B, m))
+        got, want = [M.clone() for M in mats], [M.clone() for M in mats]
+        rn.dense_scale(*got, *f, on)
+        rn.dense_scale_reference(*want, *f, on)
+        check("dense scale", got, want)
+        entry("scale_dense", shape, 2 * nbytes, dtype, lambda: rn.dense_scale(*got, *f, on),
+              lambda: rn.dense_scale_reference(*want, *f, on))
+        del mats, got, want
+
+        blocks = (rnd(B, T, D, D), rnd(B, T, D, D), rnd(B, T, 0, D), rnd(B, T, ra, D),
+                  rnd(B, T, ra, D), rnd(B, T, ra, 0), rnd(B, T, 0, D), rnd(B, T, 0, D),
+                  rnd(B, T, 0, 0))
+        nbytes = sum(M.numel() for M in blocks) * esz
+        shape = f"B={B} T={T} D={D} ra={ra} rg=0 Da=0"
+        check("stage norms", [rn.stage_norms(blocks, on, 0, T)],
+              [rn.stage_norms_reference(blocks, on, 0, T)])
+        entry("norms_stage", shape, nbytes, dtype, lambda: rn.stage_norms(blocks, on, 0, T),
+              lambda: rn.stage_norms_reference(blocks, on, 0, T))
+        f = (pos(B, T, D), pos(B, 0), pos(B, T, ra), pos(B, T, 0))
+        got, want = [M.clone() for M in blocks], [M.clone() for M in blocks]
+        rn.stage_scale(got, *f, on)
+        rn.stage_scale_reference(want, *f, on)
+        check("stage scale", got, want)
+        entry("scale_stage", shape, 2 * nbytes, dtype, lambda: rn.stage_scale(got, *f, on),
+              lambda: rn.stage_scale_reference(want, *f, on))
+        del blocks, got, want
+
+        # the step at chainmass5's widths; its vectors are read and written
+        nx, pm = T * D, T * ra
+        norms = pos(B, nx + pm).mul(3.0)
+        state = [pos(B, 2 * nx + pm), pos(B, 2 * nx + pm), pos(B, nx), rnd(B, nx), pos(B)]
+        got, want = [t.clone() for t in state], [t.clone() for t in state]
+        rn.ruiz_step(norms, None, *got, on)
+        rn.ruiz_step_reference(norms, None, *want, on)
+        check("step", got, want)
+        nbytes = (norms.numel() + 2 * sum(t.numel() for t in state)) * esz
+        entry("step", f"B={B} n={nx} p+m={pm}", nbytes, dtype,
+              lambda: rn.ruiz_step(norms, None, *got, on),
+              lambda: rn.ruiz_step_reference(norms, None, *want, on))
+        del norms, state, got, want
+        torch.cuda.empty_cache()
+
+    data = _ruiz_stage_batch(torch, B, T, D, ra, seed=25)
+    ruiz.equilibrate(data)
+    torch.cuda.synchronize()
+    _reset_counts()
+    ruiz.equilibrate(data)
+    torch.cuda.synchronize()
+    key = f"stage:float64:T{T}xD{D}xra{ra}xrg0xDa0"
+    if rn.launches_by_shape != {key: 10} or rn.pass_launches_by_kind != dict(step=10, scale=10):
+        raise AssertionError(f"stage equilibrate launches {rn.launches_by_shape}, "
+                             f"{rn.pass_launches_by_kind}: one norm, step and scale launch a pass")
+    for e in entries:
+        if e["name"] in ("ruiz_norms_stage_float64", "ruiz_scale_stage_float64"):
+            e["launches"] = 10
+    print(f"[Ruiz stage equilibrate] B={B} T={T} D={D} ra={ra}: norm launches "
+          f"{rn.launches_by_shape}, step and scale {rn.pass_launches_by_kind}")
+    del data
+    torch.cuda.empty_cache()
     return entries
 
 
@@ -2178,7 +2329,7 @@ def main() -> int:
     )
     from piqp_tpu_torch import _native
     from piqp_tpu_torch import multistage
-    from piqp_tpu_torch.ops import _build, chol_inv, signed_chol_inv
+    from piqp_tpu_torch.ops import _build, chol_inv, ruiz_norms, signed_chol_inv
     from piqp_tpu_torch.types import index, to_device
     from piqp_tpu_torch.utils.random import dense_strongly_convex_qp
 
@@ -2317,6 +2468,9 @@ def main() -> int:
     kernels += _check_k2(torch, smi)
     kernels += _check_k3(torch, smi)
 
+    # ---- 2c. the Ruiz pass kernels against their plain versions
+    kernels += _check_ruiz(torch, smi)
+
     # ---- 3. main path at full width: cold + one warm round, mixed precision
     problems = [
         dense_strongly_convex_qp(MAIN_N, MAIN_P, MAIN_M, seed=1000 + i)
@@ -2358,6 +2512,17 @@ def main() -> int:
           f"by route {main_routes}")
     if main_routes != {"resident": sum(main_launches.values()), "cluster": 0}:
         raise AssertionError(f"main path K1 launches by route {main_routes}: all must be resident")
+    ruiz_key = f"dense:{str(data.P.dtype).removeprefix('torch.')}:n{MAIN_N}xp{MAIN_P}xm{MAIN_M}"
+    ruiz_launches = (dict(ruiz_norms.launches_by_shape), dict(ruiz_norms.pass_launches_by_kind))
+    print(f"[main] Ruiz launches in the cold + warm rounds: norms {ruiz_launches[0]}, "
+          f"step and scale {ruiz_launches[1]}")
+    if ruiz_launches != ({ruiz_key: 20}, dict(step=20, scale=20)):
+        raise AssertionError(f"main path Ruiz launches {ruiz_launches}: one norm, step and "
+                             f"scale launch a pass, 10 passes a round")
+    for entry in kernels:
+        if entry["name"] in (f"ruiz_norms_dense_{ruiz_key.split(':')[1]}",
+                             f"ruiz_scale_dense_{ruiz_key.split(':')[1]}"):
+            entry["launches"] = 20
 
     cold_viol = _check_round(problems, cold, "cold")
     warm_viol = _check_round(moved, warm, "warm")

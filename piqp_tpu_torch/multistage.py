@@ -53,7 +53,8 @@ from . import kkt as kkt_mod
 from . import ruiz as ruiz_mod
 from .ops import matvec as mv
 from .ops.chol_inv import cholesky_inverse_apply
-from .types import QPData, Scaling, canonical_bounds, max0, select
+from .ops.ruiz_norms import stage_layout, stage_norms, stage_scale
+from .types import QPData, Scaling, canonical_bounds
 from .utils.profiling import annotate
 
 
@@ -849,75 +850,37 @@ def _(data: StageQPData, ks, v):
 # stage Ruiz equilibration
 # ---------------------------------------------------------------------------
 
-def _colmax(M):  # (B, T, r, d) -> (B, T, d)
-    return max0(M.abs(), dim=-2)
+def _stage_scalings(data: StageQPData, d):
+    """The whole horizon's dx (B, T, D), dg (B, Da), dy (B, T, ra) and
+    dz (B, T, rg), views of flat scalings d = [d_x | d_y | d_z | ...]."""
+    B, T, D, n, p = data.B, data.T, data.D, data.n, data.p
+    return (d[:, :T * D].view(B, T, D), d[:, T * D:n], d[:, n:n + p].view(B, T, data.ra),
+            d[:, n + p:n + p + data.m].view(B, T, data.rg))
 
 
-def _rowmax(M):  # (B, T, r, d) -> (B, T, r)
-    return max0(M.abs(), dim=-1)
-
-
-def _stage_col_norms(data: StageQPData, blocks):
-    """Column (and row) infinity norms of the stage-structured KKT matrix,
-    per problem, from the owned stages' ``blocks`` joined over the holders
-    (the norms of P[i, i+1], A2[i] and G2[i] fall on stage i + 1)."""
-    Pd, Psub, Pa, Pc, A1, A2, Ag, G1, G2, Gg, xb_s, xb_g = blocks
-    sub, a2, g2 = _rowmax(Psub), _colmax(A2), _colmax(G2)
-    norm_x = _colmax(Pd)
-    norm_x = torch.maximum(norm_x, _colmax(Psub))  # P[i+1,i] columns -> stage i
-    norm_x = torch.maximum(norm_x, _shift_down(sub, 1))  # P[i,i+1]
-    norm_x = torch.maximum(norm_x, _colmax(Pa))
-    norm_x = torch.maximum(norm_x, _colmax(A1))
-    norm_x = torch.maximum(norm_x, _shift_down(a2, 1))
-    norm_x = torch.maximum(norm_x, _colmax(G1))
-    norm_x = torch.maximum(norm_x, _shift_down(g2, 1))
-    spill = torch.maximum(torch.maximum(sub[:, -1], a2[:, -1]), g2[:, -1])
-
-    norm_g = max0(_rowmax(Pa), dim=1)  # P[g, i] rows -> g columns
-    norm_g = torch.maximum(norm_g, max0(_colmax(Ag), dim=1))
-    norm_g = torch.maximum(norm_g, max0(_colmax(Gg), dim=1))
-
-    norm_y = torch.maximum(_rowmax(A1), torch.maximum(_rowmax(A2), _rowmax(Ag)))
-    norm_z = torch.maximum(_rowmax(G1), torch.maximum(_rowmax(G2), _rowmax(Gg)))
-    norm_x, spill, norm_g, norm_y, norm_z = gather_pieces(
-        data, (norm_x, spill, norm_g, norm_y, norm_z))
-    norm_x = torch.maximum(_joined(norm_x, spill, torch.maximum), xb_s)
-    norm_g = torch.maximum(norm_g.amax(dim=0), max0(Pc.abs(), dim=-2))
-    norm_g = torch.maximum(norm_g, xb_g)
-    return norm_x, norm_g, _joined(norm_y), _joined(norm_z)
-
-
-def _cost_col_norms(data: StageQPData, Pd, Psub, Pa):
-    """Column infinity norms of P's stage columns (B, T, D), from the owned
-    stages' blocks joined over the holders."""
-    sub = max0(Psub.abs(), dim=-1)
-    pn = max0(Pd.abs(), dim=-2)
-    pn = torch.maximum(pn, max0(Psub.abs(), dim=-2))
-    pn = torch.maximum(pn, _shift_down(sub, 1))
-    pn = torch.maximum(pn, max0(Pa.abs(), dim=-2))
-    pn, spill = gather_pieces(data, (pn, sub[:, -1]))
-    return _joined(pn, spill, torch.maximum)
-
-
-def _scale_blocks(blocks, own, dx, dg, dy, dz, db_s, db_g):
-    """The owned stages' ``blocks`` (and the whole x_b_scaling) scaled by
-    the whole horizon's scalings."""
-    Pd, Psub, Pa, Pc, A1, A2, Ag, G1, G2, Gg, xb_s, xb_g = blocks
-    dx_own, dx_next = dx[:, own], _shift_up(dx, 1)[:, own]
-    dy_own, dz_own = dy[:, own], dz[:, own]
-    col_x, col_next = dx_own[:, :, None, :], dx_next[:, :, None, :]
-    col_g = dg[:, None, None, :]
-    Pd = Pd * dx_own[:, :, :, None] * col_x
-    Psub = Psub * dx_next[:, :, :, None] * col_x
-    Pa = Pa * dg[:, None, :, None] * col_x
-    Pc = Pc * dg[:, :, None] * dg[:, None, :]
-    A1 = A1 * dy_own[..., None] * col_x
-    A2 = A2 * dy_own[..., None] * col_next
-    Ag = Ag * dy_own[..., None] * col_g
-    G1 = G1 * dz_own[..., None] * col_x
-    G2 = G2 * dz_own[..., None] * col_next
-    Gg = Gg * dz_own[..., None] * col_g
-    return (Pd, Psub, Pa, Pc, A1, A2, Ag, G1, G2, Gg, xb_s * db_s * dx, xb_g * db_g * dg)
+def _stage_col_norms(data: StageQPData, active, cost_only: bool = False):
+    """Infinity norms (B, n + p + m) of the stage-structured KKT matrix, per
+    problem, without x_b_scaling's column and P[g, g]'s, 0 where a problem
+    is not ``active``: the owned stages' blocks read by
+    ``ops.ruiz_norms.stage_norms`` (one kernel launch on CUDA), joined over
+    the holders (the norms of P[i, i+1], A2[i] and G2[i] fall on stage
+    i + 1).  ``cost_only``: P's column norms (B, n) alone."""
+    blocks = tuple(getattr(data, k) for k in STAGE_BLOCKS)
+    if cost_only:  # A's and G's blocks with no rows
+        blocks = blocks[:3] + tuple(M[:, :, :0] for M in blocks[3:])
+    own = data.owned
+    out = stage_norms(blocks, active, own.start, data.T)
+    if own.stop - own.start == data.T:
+        return out  # the whole horizon: joined already
+    B, Tl, D = data.B, own.stop - own.start, data.D
+    wx, Da, wy, wz = stage_layout(Tl, D, data.Da, blocks[3].shape[2], blocks[6].shape[2],
+                                  own.stop < data.T)
+    x, g, y, z = torch.split(out, [wx, Da, wy, wz], dim=1)
+    spill = x[:, Tl * D:] if wx > Tl * D else torch.zeros_like(x[:, :D])
+    x, spill, g, y, z = gather_pieces(data, (x[:, :Tl * D].view(B, Tl, D), spill, g,
+                                             y.view(B, Tl, -1), z.view(B, Tl, -1)))
+    return torch.cat([_joined(x, spill, torch.maximum).flatten(1), g.amax(dim=0),
+                      _joined(y).flatten(1), _joined(z).flatten(1)], dim=1)
 
 
 @ruiz_mod.equilibrate.register
@@ -926,91 +889,39 @@ def _equilibrate_stage(
     epsilon: float = 1e-3,
 ):
     """Ruiz equilibration over the stage blocks: the dense algorithm
-    (preconditioner.hpp:64-222) with blockwise norms.  Every norm and the
-    early exit are per problem.  Each holder scales its own stages'
-    blocks; the norms are joined over the holders, so every holder
-    computes the same scalings and stops at the same pass."""
-    lim = ruiz_mod._limit_scaling
-    B, T, D, Da = data.B, data.T, data.D, data.Da
-    dt, dev = data.c.dtype, data.c.device
+    (preconditioner.hpp:64-222) with blockwise norms, ``ruiz._equilibrate``'s
+    pass loop.  Every norm and the early exit are per problem.  Each
+    holder reads and scales its own stages' blocks; the norms are joined
+    over the holders, so every holder computes the same scalings."""
+    work = dataclasses.replace(data, **{k: ruiz_mod._copy(getattr(data, k)) for k in _BLOCKS})
 
-    xb_s, xb_g = _split_x(data, data.x_b_scaling)
-    blocks = tuple(getattr(data, k) for k in _BLOCKS) + (xb_s, xb_g)
-    cs, cg = _split_x(data, data.c)
-    cost = torch.ones(B, dtype=dt, device=dev)
+    def scale(w, s, active):
+        dx, dg, dy, dz = _stage_scalings(w, s)
+        stage_scale(tuple(getattr(w, k) for k in STAGE_BLOCKS), dx, dg, dy, dz, active,
+                    w.owned.start)
+        on = active[:, None, None]
+        w.Pc.copy_(torch.where(on, w.Pc * dg[:, :, None] * dg[:, None, :], w.Pc))
 
-    def ones(*shape):
-        return torch.ones((B,) + shape, dtype=dt, device=dev)
+    def scale_p(w, gamma, active):
+        for M in (w.Pd, w.Psub, w.Pa, w.Pc):
+            ruiz_mod._scaled_by_cost(M, gamma, active)
 
-    d = (ones(T, D), ones(Da), ones(T, data.ra), ones(T, data.rg), ones(T, D), ones(Da))
-    measure = torch.full((B,), float("inf"), dtype=dt, device=dev)
-
-    for _ in range(max_iter):
-        active = measure > epsilon
-        if not bool(active.any()):
-            break
-        norm_x, norm_g, norm_y, norm_z = _stage_col_norms(data, blocks)
-        dx = 1.0 / torch.sqrt(lim(norm_x))
-        dg = 1.0 / torch.sqrt(lim(norm_g))
-        dy = 1.0 / torch.sqrt(lim(norm_y))
-        dz = 1.0 / torch.sqrt(lim(norm_z))
-        db_s = 1.0 / torch.sqrt(lim(blocks[10]))
-        db_g = 1.0 / torch.sqrt(lim(blocks[11]))
-
-        nblocks = _scale_blocks(blocks, data.owned, dx, dg, dy, dz, db_s, db_g)
-        ncs, ncg = cs * dx, cg * dg
-        nd = tuple(a * b for a, b in zip(d, (dx, dg, dy, dz, db_s, db_g)))
-        ncost = cost
-        if scale_cost:
-            Pd, Psub, Pa, Pc = nblocks[:4]
-            pn = _cost_col_norms(data, Pd, Psub, Pa)
-            gsum = pn.sum(dim=(1, 2)) + max0(Pc.abs(), dim=-2).sum(dim=-1)
-            gamma = lim(gsum / data.n)
-            cmax = torch.maximum(max0(ncs.abs().flatten(1)), max0(ncg.abs()))
-            gamma = 1.0 / lim(torch.maximum(gamma, cmax))
-            g4, g3 = gamma[:, None, None, None], gamma[:, None, None]
-            nblocks = (Pd * g4, Psub * g4, Pa * g4, Pc * g3) + nblocks[4:]
-            ncs, ncg = ncs * g3, ncg * gamma[:, None]
-            ncost = cost * gamma
-
-        nmeasure = torch.stack([
-            max0((1.0 - v).abs().flatten(1)) for v in (dx, dg, dy, dz, db_s, db_g)
-        ], dim=-1).amax(dim=-1)
-        blocks, cs, cg, cost, d, measure = select(
-            active, (nblocks, ncs, ncg, ncost, nd, nmeasure),
-            (blocks, cs, cg, cost, d, measure),
-        )
-
-    dx, dg, dy, dz, db_s, db_g = d
-    d_x, d_y, d_z, d_b = _join_x(dx, dg), dy.flatten(1), dz.flatten(1), _join_x(db_s, db_g)
-    scaled = dataclasses.replace(
-        data, **dict(zip(_BLOCKS, blocks[:10])),
-        x_b_scaling=_join_x(blocks[10], blocks[11]),
-        c=_join_x(cs, cg),
-        b=data.b * d_y, h_l=data.h_l * d_z, h_u=data.h_u * d_z,
-        x_l=data.x_l * d_b, x_u=data.x_u * d_b,
-    )
-    return scaled, Scaling(c=cost, d_x=d_x, d_y=d_y, d_z=d_z, d_b=d_b)
+    return ruiz_mod._equilibrate(work, _stage_col_norms, scale, scale_p, max_iter, scale_cost,
+                                 epsilon)
 
 
 @ruiz_mod.apply_scaling.register
 def _apply_scaling_stage(data: StageQPData, s: Scaling):
-    B, T, D = data.B, data.T, data.D
-    dx, dg = s.d_x[:, :T * D].reshape(B, T, D), s.d_x[:, T * D:]
-    db_s, db_g = s.d_b[:, :T * D].reshape(B, T, D), s.d_b[:, T * D:]
-    dy = s.d_y.reshape(B, T, data.ra)
-    dz = s.d_z.reshape(B, T, data.rg)
-    xb_s, xb_g = _split_x(data, data.x_b_scaling)
-    blocks = _scale_blocks(
-        tuple(getattr(data, k) for k in _BLOCKS) + (xb_s, xb_g),
-        data.owned, dx, dg, dy, dz, db_s, db_g,
-    )
+    dx, dg, dy, dz = _stage_scalings(data, torch.cat([s.d_x, s.d_y, s.d_z], dim=1))
+    blocks = {k: ruiz_mod._copy(getattr(data, k)) for k in STAGE_BLOCKS}
+    stage_scale(tuple(blocks.values()), dx, dg, dy, dz, torch.ones_like(s.c, dtype=torch.bool),
+                data.owned.start)
     c4, c3 = s.c[:, None, None, None], s.c[:, None, None]
+    for k in ("Pd", "Psub", "Pa"):
+        blocks[k] = c4 * blocks[k]
     return dataclasses.replace(
-        data,
-        Pd=c4 * blocks[0], Psub=c4 * blocks[1], Pa=c4 * blocks[2], Pc=c3 * blocks[3],
-        **dict(zip(_BLOCKS[4:], blocks[4:10])),
-        x_b_scaling=_join_x(blocks[10], blocks[11]),
+        data, **blocks, Pc=c3 * (data.Pc * dg[:, :, None] * dg[:, None, :]),
+        x_b_scaling=data.x_b_scaling * s.d_b * s.d_x,
         c=s.c[:, None] * data.c * s.d_x,
         b=data.b * s.d_y, h_l=data.h_l * s.d_z, h_u=data.h_u * s.d_z,
         x_l=data.x_l * s.d_b, x_u=data.x_u * s.d_b,

@@ -46,6 +46,16 @@ _ENTRY_POINTS = {
     "piqp_chol_inv_apply_small_f64": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
     "piqp_signed_chol_inv_resident_f32": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
     "piqp_signed_chol_inv_resident_f64": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
+    "piqp_ruiz_norms_dense_f32": (_PTR, _PTR, _PTR),
+    "piqp_ruiz_norms_dense_f64": (_PTR, _PTR, _PTR),
+    "piqp_ruiz_norms_stage_f32": (_PTR, _PTR, _PTR),
+    "piqp_ruiz_norms_stage_f64": (_PTR, _PTR, _PTR),
+    "piqp_ruiz_step_f32": (_PTR, _PTR, _PTR),
+    "piqp_ruiz_step_f64": (_PTR, _PTR, _PTR),
+    "piqp_ruiz_scale_dense_f32": (_PTR, _PTR, _PTR),
+    "piqp_ruiz_scale_dense_f64": (_PTR, _PTR, _PTR),
+    "piqp_ruiz_scale_stage_f32": (_PTR, _PTR, _PTR),
+    "piqp_ruiz_scale_stage_f64": (_PTR, _PTR, _PTR),
 }
 
 

@@ -5,7 +5,17 @@ Each pass scales the KKT matrix [P A' G' D; A; G; D] by the inverse square
 roots of its column infinity norms.  Every norm and the early-exit measure
 are per problem, and each problem stops on its own: a problem whose
 measure fell below ``epsilon`` keeps its scaling while the others go on,
-as ``vmap`` of the JAX ``while_loop`` does.
+as ``vmap`` of the JAX ``while_loop`` does.  All ``max_iter`` passes run,
+under that per-problem mask, with no read of the device from the host.
+
+A pass (``ops.ruiz_norms``; on CUDA a launch of each hand-written kernel):
+the norms of the working copy of the blocks, read once; the step (the
+pass's scalings, the accumulated ones, x_b_scaling, c, the measure); the
+working copy scaled in place by the step, read and written once.  The
+copy is scaled pass by pass, as the reference scales its matrices, so
+every scaled value is rounded as there and the results are the previous
+port's, bit for bit.  Under ``scale_cost`` a second norms launch and the
+cost step give gamma, and P's blocks are scaled by it.
 """
 
 from __future__ import annotations
@@ -15,27 +25,8 @@ from functools import singledispatch
 
 import torch
 
-from .types import QPData, Scaling, max0, select
-
-MIN_SCALING = 1e-4
-MAX_SCALING = 1e4
-
-
-def _limit_scaling(d: torch.Tensor) -> torch.Tensor:
-    """Mirror of limit_scaling (preconditioner.hpp:420-437): values below
-    MIN_SCALING are reset to 1 (not clamped!), values above MAX_SCALING are
-    clamped."""
-    d = torch.where(d < MIN_SCALING, 1.0, d)
-    return torch.where(d > MAX_SCALING, MAX_SCALING, d)
-
-
-def _inf_norm_cols(M: torch.Tensor) -> torch.Tensor:
-    """Infinity norm of each column of each (r, k) matrix -> (B, k)."""
-    return max0(M.abs(), dim=-2)
-
-
-def _inf_norm_rows(M: torch.Tensor) -> torch.Tensor:
-    return max0(M.abs(), dim=-1)
+from .ops.ruiz_norms import dense_norms, dense_scale, ruiz_cost_step, ruiz_step
+from .types import QPData, Scaling
 
 
 @singledispatch
@@ -47,78 +38,87 @@ def equilibrate(
     raise NotImplementedError(type(data))
 
 
+def _equilibrate(work, norms, scale, scale_p, max_iter: int, scale_cost: bool,
+                 epsilon: float):
+    """The pass loop of every registration, on ``work``: the data with
+    copies of its matrices, which the loop scales in place.  The scalings
+    are one flat (B, 2n + p + m) vector d = [d_x | d_y | d_z | d_b].
+
+    ``norms(work, active, cost_only)``: the infinity norms (B, n + p + m)
+    of work's KKT matrix without x_b_scaling's column and P[g, g]'s
+    (``work.Pc`` where the data has one: ``ops.ruiz_norms.ruiz_step`` joins
+    them in), 0 where a problem is not ``active``; with ``cost_only``, P's
+    column norms (B, n) alone (preconditioner.hpp:148-169).
+    ``scale(work, s, active)``: work's matrices scaled by a pass's
+    scalings s (d's layout), for the ``active`` problems; ``scale_p(work,
+    gamma, active)``: P's by the cost factor.
+    """
+    B, n, p, m = work.B, work.n, work.p, work.m
+    dt, dev = work.c.dtype, work.c.device
+    d = torch.ones((B, 2 * n + p + m), dtype=dt, device=dev)
+    s = torch.ones_like(d)
+    cost = torch.ones(B, dtype=dt, device=dev)
+    gamma = torch.ones_like(cost)
+    xb, cvec = work.x_b_scaling.clone(), work.c.clone()
+    measure = torch.full((B,), float("inf"), dtype=dt, device=dev)
+    Pc = getattr(work, "Pc", None)
+    for _ in range(max_iter):
+        active = measure > epsilon
+        ruiz_step(norms(work, active, False), Pc, d, s, xb, cvec, measure, active)
+        scale(work, s, active)
+        if scale_cost:
+            ruiz_cost_step(norms(work, active, True), Pc, cvec, cost, gamma, active)
+            scale_p(work, gamma, active)
+    d_x, d_y, d_z, d_b = (v.contiguous() for v in torch.split(d, [n, p, m, n], dim=1))
+    scaled = dataclasses.replace(
+        work, c=cvec, x_b_scaling=xb,
+        b=work.b * d_y, h_l=work.h_l * d_z, h_u=work.h_u * d_z,
+        x_l=work.x_l * d_b, x_u=work.x_u * d_b,
+    )
+    return scaled, Scaling(c=cost, d_x=d_x, d_y=d_y, d_z=d_z, d_b=d_b)
+
+
+def _copy(M: torch.Tensor) -> torch.Tensor:
+    """A copy of M with its rows packed, for the scale kernels to write."""
+    return M.clone(memory_format=torch.contiguous_format)
+
+
+def _scaled_by_cost(M: torch.Tensor, gamma: torch.Tensor, active: torch.Tensor) -> None:
+    """M (B, ...) times gamma (B,) in place, for the ``active`` problems."""
+    g = gamma.reshape((-1,) + (1,) * (M.ndim - 1))
+    M.copy_(torch.where(active.reshape(g.shape), M * g, M))
+
+
 @equilibrate.register
 def _(
     data: QPData,
     max_iter: int = 10,
     scale_cost: bool = False,
     epsilon: float = 1e-3,
-) -> tuple[QPData, Scaling]:
-    """Dense registration.  The scaled data equals
-
+):
+    """Dense: Ruiz over [P A' G'; A; G] with x_b_scaling folded into the
+    column norms (preconditioner.hpp:93-109).  Returns (scaled, Scaling):
         P <- c * Dx P Dx,  c_vec <- c * Dx c_vec,
         A <- Dy A Dx,      b <- Dy b,
         G <- Dz G Dx,      h <- Dz h,
         x_b_scaling <- Db * Dx * x_b_scaling,  x_l/x_u <- Db x_l/x_u.
     """
-    dtype, device = data.P.dtype, data.P.device
-    B, n = data.B, data.n
-    ones = lambda k: torch.ones((B, k), dtype=dtype, device=device)  # noqa: E731
-    d_x, d_y, d_z, d_b = ones(n), ones(data.p), ones(data.m), ones(n)
-    cost = torch.ones(B, dtype=dtype, device=device)
-    P, cvec, A, G, xb = data.P, data.c, data.A, data.G, data.x_b_scaling
-    measure = torch.full((B,), float("inf"), dtype=dtype, device=device)
+    n, p, m = data.n, data.p, data.m
+    work = dataclasses.replace(data, P=_copy(data.P), A=_copy(data.A), G=_copy(data.G))
 
-    for _ in range(max_iter):
-        active = measure > epsilon
-        if not bool(active.any()):
-            break
-        # column norms of the full KKT matrix (preconditioner.hpp:93-109)
-        norm_x = torch.maximum(_inf_norm_cols(P), xb)
-        norm_x = torch.maximum(norm_x, _inf_norm_cols(A))
-        norm_x = torch.maximum(norm_x, _inf_norm_cols(G))
-        dx = 1.0 / torch.sqrt(_limit_scaling(norm_x))
-        dy = 1.0 / torch.sqrt(_limit_scaling(_inf_norm_rows(A)))
-        dz = 1.0 / torch.sqrt(_limit_scaling(_inf_norm_rows(G)))
-        db = 1.0 / torch.sqrt(_limit_scaling(xb))
+    def norms(w, active, cost_only):
+        # column norms of the KKT matrix (preconditioner.hpp:93-109)
+        if cost_only:
+            return dense_norms(w.P, w.A[:, :0], w.G[:, :0], active)
+        return dense_norms(w.P, w.A, w.G, active)
 
-        nP = dx[:, :, None] * P * dx[:, None, :]
-        ncvec = cvec * dx
-        nA = dy[:, :, None] * A * dx[:, None, :]
-        nG = dz[:, :, None] * G * dx[:, None, :]
-        nxb = xb * db * dx
-        ncost = cost
-        if scale_cost:
-            # preconditioner.hpp:148-169
-            gamma = _inf_norm_cols(nP).sum(-1) / n
-            gamma = _limit_scaling(gamma)
-            gamma = torch.maximum(gamma, max0(ncvec.abs()))
-            gamma = 1.0 / _limit_scaling(gamma)
-            nP = nP * gamma[:, None, None]
-            ncvec = ncvec * gamma[:, None]
-            ncost = cost * gamma
+    def scale(w, s, active):
+        dense_scale(w.P, w.A, w.G, s[:, :n], s[:, n:n + p], s[:, n + p:n + p + m], active)
 
-        # convergence measure of this pass (preconditioner.hpp:79-82)
-        nmeasure = torch.maximum(
-            max0((1.0 - dx).abs()),
-            torch.maximum(
-                max0((1.0 - dy).abs()),
-                torch.maximum(max0((1.0 - dz).abs()), max0((1.0 - db).abs())),
-            ),
-        )
-        P, cvec, A, G, xb, cost, measure, d_x, d_y, d_z, d_b = select(
-            active,
-            (nP, ncvec, nA, nG, nxb, ncost, nmeasure,
-             d_x * dx, d_y * dy, d_z * dz, d_b * db),
-            (P, cvec, A, G, xb, cost, measure, d_x, d_y, d_z, d_b),
-        )
+    def scale_p(w, gamma, active):
+        _scaled_by_cost(w.P, gamma, active)
 
-    scaled = dataclasses.replace(
-        data, P=P, c=cvec, A=A, G=G, x_b_scaling=xb,
-        b=data.b * d_y, h_l=data.h_l * d_z, h_u=data.h_u * d_z,
-        x_l=data.x_l * d_b, x_u=data.x_u * d_b,
-    )
-    return scaled, Scaling(c=cost, d_x=d_x, d_y=d_y, d_z=d_z, d_b=d_b)
+    return _equilibrate(work, norms, scale, scale_p, max_iter, scale_cost, epsilon)
 
 
 @singledispatch
@@ -130,17 +130,18 @@ def apply_scaling(data, s: Scaling):
 
 @apply_scaling.register
 def _(data: QPData, s: Scaling) -> QPData:
-    dx = s.d_x
+    P, A, G = _copy(data.P), _copy(data.A), _copy(data.G)
+    dense_scale(P, A, G, s.d_x, s.d_y, s.d_z, torch.ones_like(s.c, dtype=torch.bool))
     return dataclasses.replace(
         data,
-        P=s.c[:, None, None] * (dx[:, :, None] * data.P * dx[:, None, :]),
-        c=s.c[:, None] * data.c * dx,
-        A=s.d_y[:, :, None] * data.A * dx[:, None, :],
+        P=s.c[:, None, None] * P,
+        c=s.c[:, None] * data.c * s.d_x,
+        A=A,
         b=data.b * s.d_y,
-        G=s.d_z[:, :, None] * data.G * dx[:, None, :],
+        G=G,
         h_l=data.h_l * s.d_z,
         h_u=data.h_u * s.d_z,
         x_l=data.x_l * s.d_b,
         x_u=data.x_u * s.d_b,
-        x_b_scaling=data.x_b_scaling * s.d_b * dx,
+        x_b_scaling=data.x_b_scaling * s.d_b * s.d_x,
     )

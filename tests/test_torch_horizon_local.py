@@ -149,17 +149,14 @@ def test_matvecs_join_to_the_whole_horizon(name, world, op, sim):
 @pytest.mark.parametrize("name,world", GRID, ids=IDS)
 def test_ruiz_norms_join_to_the_whole_horizon(name, world, sim):
     data = _data(name)
-
-    def blocks(d):
-        xb_s, xb_g = tms._split_x(d, d.x_b_scaling)
-        return tuple(getattr(d, k) for k in tms._BLOCKS) + (xb_s, xb_g)
+    active = torch.ones(data.B, dtype=torch.bool)
 
     def norms(d):
-        return tms._stage_col_norms(d, blocks(d)) + (tms._cost_col_norms(d, d.Pd, d.Psub, d.Pa),)
+        return (tms._stage_col_norms(d, active), tms._stage_col_norms(d, active, cost_only=True))
 
     want = norms(data)
     got = on_ranks(world, lambda r, g: norms(rank_view(data, world, r, g)))
-    for i, what in enumerate(("norm_x", "norm_g", "norm_y", "norm_z", "cost norm_x")):
+    for i, what in enumerate(("norms", "cost norms")):
         same_everywhere([n[i] for n in got], what)
         close(got[0][i], want[i], what)
 

@@ -3,6 +3,8 @@ scaling vectors and the scaled data agree to 1e-12 for every problem of a
 batch, including a badly scaled one that needs more passes than the others
 (each problem's pass loop stops on its own)."""
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -57,3 +59,55 @@ def test_apply_scaling_matches_equilibrate():
         torch.testing.assert_close(
             getattr(again, name), getattr(scaled, name), rtol=1e-12, atol=1e-14
         )
+
+
+def _near_equilibrated_dense(n=6, p=2, m=3, seed=3):
+    """Every entry of P, A and G at 1.003 in magnitude: the first pass
+    moves the scalings by 1.5e-3, the second by 7.5e-4 (the bounds' column
+    x_b_scaling), under the 1e-3 measure, so the mask stops it there."""
+    rng = np.random.default_rng(seed)
+    S = np.sign(rng.standard_normal((n, n)))
+    return dict(P=1.003 * np.triu(S) + 1.003 * np.triu(S, 1).T, c=np.zeros(n),
+                A=1.003 * np.sign(rng.standard_normal((p, n))), b=np.zeros(p),
+                G=1.003 * np.sign(rng.standard_normal((m, n))),
+                h_l=-np.ones(m), h_u=np.ones(m))
+
+
+def _mask_batch(kind):
+    """Problem 0 near equilibrium, problem 1 badly scaled (many passes)."""
+    if kind == "dense":
+        bad = dense_strongly_convex_qp(6, 2, 3, seed=4)
+        bad["P"] = bad["P"] * 1e4
+        return prepare_batch([_near_equilibrated_dense(), bad], device="cpu")
+    from piqp_tpu_torch import multistage as tms
+    from piqp_tpu_torch.types import concat
+
+    near, bad = (tms.random_multistage_qp(T=4, D=3, Da=2, ra=2, rg=2, seed=s, device="cpu")
+                 for s in (50, 51))
+    near = dataclasses.replace(
+        near, c=torch.zeros_like(near.c),
+        **{k: 1.003 * torch.sign(getattr(near, k)) for k in tms._BLOCKS})
+    return concat([near, dataclasses.replace(bad, Pd=bad.Pd * 300.0)])
+
+
+@pytest.mark.parametrize("scale_cost", [False, True], ids=["plain", "scale_cost"])
+@pytest.mark.parametrize("kind", ["dense", "stage"])
+def test_the_mask_alone_ends_a_problems_passes(kind, scale_cost):
+    """All max_iter passes run on every problem, with no read of the
+    device: a problem that converged after two passes keeps, bit for bit,
+    the scaling and the scaled data of max_iter = 2, while the other goes
+    on."""
+    data = _mask_batch(kind)
+    runs = {k: torch_ruiz.equilibrate(data, max_iter=k, scale_cost=scale_cost) for k in (1, 2, 10)}
+    names = ("c", "d_x", "d_y", "d_z", "d_b")
+    for name in names:
+        ten, two = getattr(runs[10][1], name), getattr(runs[2][1], name)
+        assert torch.equal(ten[0], two[0]), name
+    assert any(not torch.equal(getattr(runs[2][1], k)[0], getattr(runs[1][1], k)[0])
+               for k in names), "the second pass changed nothing"
+    assert any(not torch.equal(getattr(runs[10][1], k)[1], getattr(runs[2][1], k)[1])
+               for k in names), "problem 1 stopped with problem 0"
+    for f in dataclasses.fields(runs[10][0]):
+        ten, two = getattr(runs[10][0], f.name), getattr(runs[2][0], f.name)
+        if isinstance(ten, torch.Tensor) and ten.ndim:
+            assert torch.equal(ten[0], two[0]), f.name
